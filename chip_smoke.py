@@ -2,18 +2,25 @@
 """Drive the PyTorch/CUDA port (styletts2_tpu_torch) on one NVIDIA GPU and
 check it.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--b1-only] [--package-from DIR]
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit; torch and CUDA versions);
   2. the nvcc build of both kernels from csrc/, in parallel, timed;
   3. kernel B1 (fused AdaIN+Snake+dilated conv) against its plain PyTorch
      version at every (C, k, d) of the default config at frame bucket 256,
-     f32 and bf16, with the residual/stats epilogues and a ragged T; then
-     every launch of one bf16 phase-2 call at that bucket, timed (kernel,
-     plain version, bound);
+     f32 and bf16, with the residual/stats epilogues, a ragged T, batches
+     and the bf16 kernel's other tile branches; the count of tensor-core
+     instructions in the built library's SASS; then every launch of one
+     bf16 phase-2 call at that bucket, timed: the kernel in eager calls
+     (CUDA events around wrapper calls, host time included: the `ms` of
+     the kernels line), on the device by CUDA-graph replay with warm and
+     with cold L2, the plain version, the bound, and a cuDNN bf16 conv1d
+     of the same shape on an already-transformed input as a yardstick for
+     the conv part alone;
   4. kernel B2 (fused log-mel) against its plain version at the style shape
-     (B = 1 and 6) and the three MRSTFT resolutions, timed;
+     (B = 1 and 6) and the three MRSTFT resolutions, timed in eager calls
+     and on the device;
   5. the engine at full width (configs/config_example.yaml, bf16 decoder,
      seeded random weights): compute_style on a seeded 5-s clip, generate
      on three texts, with the launch counts of both kernels;
@@ -21,12 +28,17 @@ Phases, each printed on its own line:
   7. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
+`--b1-only` stops after phase 3; with `--package-from DIR` the package
+(kernels, wrappers, config) comes from the checkout in DIR, so two commits'
+B1 kernels are timed by the same code in one run.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -41,6 +53,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_F32 = 67e12      # f32 FMA on the CUDA cores
 PEAK_BF16 = 989e12    # bf16 tensor cores
 HBM_BYTES_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 # kernel vs plain version on the card, as a share of max(1, max|plain|):
 # f32 differs only in summation order; bf16 may flip one rounding of an
 # output, i.e. one bf16 step (2^-8 relative)
@@ -74,6 +87,35 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fns, reps: int, replays: int = 5) -> float:
+    """Device time of one call: `reps` calls, cycling through `fns` (one
+    callable or a list), captured in one CUDA graph and replayed, so host
+    time between launches is not in the number (the eager wrappers take
+    tens of microseconds of host time per call, more than the small kernels
+    take on the card). One callable reuses its inputs, which then stay in
+    L2; a list whose inputs together exceed L2 reads them from HBM."""
+    import torch
+
+    fns = [fns] if callable(fns) else list(fns)
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def bound_ms(flops: float, nbytes: float, peak: float):
     t_ops, t_mem = flops / peak, nbytes / HBM_BYTES_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
@@ -99,8 +141,8 @@ def b1_operands(c, t, k, dtype, gen, b=1, residual=False):
     ops = dict(x=rnd(b, t, c).to(dtype), scale=rnd(b, c, sc=0.5) + 1.0,
                shift=rnd(b, c, sc=0.1), alpha=rnd(c).abs() + 0.5,
                w=rnd(k, c, c, sc=0.05).to(dtype), bias=rnd(c, sc=0.01),
-               n_valid=torch.tensor([t - 37] * b, dtype=torch.int32,
-                                    device="cuda"))
+               n_valid=torch.tensor([t - 37 - 101 * i for i in range(b)],
+                                    dtype=torch.int32, device="cuda"))
     ops["residual"] = rnd(b, t, c).to(dtype) if residual else None
     return ops
 
@@ -114,6 +156,24 @@ def b1_bound(b, t, c, k, itemsize, residual, peak):
     flops = 2.0 * b * t * c * c * k
     nbytes = b * t * c * itemsize * (2 + int(residual)) + k * c * c * itemsize
     return bound_ms(flops, nbytes, peak)
+
+
+def tensor_core_sass(lib_path):
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in the
+    library's SASS, or why they could not be counted."""
+    from styletts2_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        cand = Path(_build.nvcc_path()).parent / "cuobjdump"
+        tool = str(cand) if cand.is_file() else None
+    if tool is None:
+        return None, "cuobjdump not found: tensor-core instructions not counted"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120).stdout
+    n = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+    return n, (f"HGMMA {n['HGMMA']}, HMMA {n['HMMA']} in "
+               f"{Path(lib_path).name} (cuobjdump -sass)")
 
 
 def phase_b1(chk: Checks, cfg, frame_bucket: int):
@@ -137,9 +197,9 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
     max_err = 0.0
     n_checks = 0
 
-    def compare(c, t, k, d, dtype, residual, stats, tag=""):
+    def compare(c, t, k, d, dtype, residual, stats, tag="", b=1):
         nonlocal max_err, n_checks
-        o = b1_operands(c, t, k, dtype, gen, residual=residual)
+        o = b1_operands(c, t, k, dtype, gen, b=b, residual=residual)
         got = b1_call(VK.ada_snake_conv, o, d, stats)
         want = b1_call(VK.ada_snake_conv_plain, o, d, stats)
         torch.cuda.synchronize()
@@ -173,17 +233,33 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
               f"rel err {worst['float32']:.3g} (tol {TOL['float32']:g}), "
               f"bf16 residual+stats rel err {worst['bfloat16']:.3g} "
               f"(tol {TOL['bfloat16']:g})", flush=True)
-    # the other epilogue combinations and a T that is no multiple of the
-    # block's rows (64 at C >= 64, 128 at C = 32)
-    for c, t, k, d, dtype, res, st in [
-            (256, 5157, 11, 5, torch.float32, True, True),
-            (32, 153637, 11, 5, torch.bfloat16, False, False),
-            (64, 76800, 7, 3, torch.bfloat16, False, True),
-            (128, 25600, 3, 1, torch.bfloat16, True, False),
-            (32, 153600, 3, 1, torch.float32, True, True)]:
-        compare(c, t, k, d, dtype, res, st, tag=" (variant)")
+    # the other epilogue combinations, a T that is no multiple of the
+    # block's rows, and batches whose rows have different valid lengths;
+    # the last three take the bf16 streaming kernel's other branches: 32
+    # output channels per block over three unswizzled input chunks (C =
+    # 96), 64 over three swizzled chunks (C = 192), and C = 64 with weights
+    # too large to stay resident (k = 17, d = 9)
+    for c, t, k, d, dtype, res, st, b in [
+            (256, 5157, 11, 5, torch.float32, True, True, 1),
+            (32, 153637, 11, 5, torch.bfloat16, False, False, 1),
+            (64, 76800, 7, 3, torch.bfloat16, False, True, 1),
+            (128, 25600, 3, 1, torch.bfloat16, True, False, 1),
+            (32, 153600, 3, 1, torch.float32, True, True, 1),
+            (256, 5157, 7, 3, torch.bfloat16, True, True, 2),
+            (32, 4099, 11, 5, torch.bfloat16, True, True, 3),
+            (96, 4099, 7, 3, torch.bfloat16, True, True, 1),
+            (192, 5157, 11, 5, torch.bfloat16, True, True, 2),
+            (64, 4099, 17, 9, torch.bfloat16, True, True, 1)]:
+        compare(c, t, k, d, dtype, res, st, tag=f" (variant, B={b})", b=b)
     print(f"[3 B1] {n_checks} checks in {time.perf_counter() - t0:.1f} s, "
           f"max abs err {max_err:.4g}", flush=True)
+    from styletts2_tpu_torch.ops import _build
+
+    counts, line = tensor_core_sass(_build.library_path("vocoder"))
+    print(f"[3 B1 sass] {line}", flush=True)
+    if counts is not None:
+        chk.check(counts["HGMMA"] + counts["HMMA"] > 0,
+                  "B1 library has tensor-core instructions")
 
     # every launch of one bf16 phase-2 call at this bucket: per dilation,
     # conv1 (stats) and conv2 (residual + stats, no stats after the last)
@@ -195,34 +271,63 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
                 for key in ((c, t, k, d, False, True),
                             (c, t, k, 1, True, not last)):
                     launches[key] = launches.get(key, 0) + 1
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, n=0)
-    per_stage = {}
+    # ms: CUDA events around 10 eager wrapper calls (the definition of
+    # earlier PRs; it includes the host's time to issue each call); device
+    # ms: CUDA-graph replay of the same inputs (warm L2); cold ms: replay
+    # cycling through input sets that together exceed twice the L2, so
+    # inputs come from HBM as the bound assumes; plain ms: eager
+    keys = ("ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "conv_ms")
+    totals = dict.fromkeys(keys + ("ops_ms",), 0.0)
+    totals["n"] = 0
+    per_stage, detail = {}, []
     for (c, t, k, d, res, st), n in sorted(launches.items()):
         o = b1_operands(c, t, k, torch.bfloat16, gen, residual=res)
-        ms = cuda_ms(lambda: b1_call(VK.ada_snake_conv, o, d, st), 10)
+        ems = cuda_ms(lambda: b1_call(VK.ada_snake_conv, o, d, st), 10)
+        dms = graph_ms(lambda: b1_call(VK.ada_snake_conv, o, d, st), 10)
+        in_bytes = (t * c * (1 + int(res)) + k * c * c) * 2
+        n_sets = -(-2 * L2_BYTES // in_bytes)
+        sets = [b1_operands(c, t, k, torch.bfloat16, gen, residual=res)
+                for _ in range(n_sets)]
+        cold = graph_ms([lambda s=s: b1_call(VK.ada_snake_conv, s, d, st)
+                         for s in sets], n_sets * -(-10 // n_sets))
+        del sets
         pms = cuda_ms(lambda: b1_call(VK.ada_snake_conv_plain, o, d, st), 3)
+        # yardstick: cuDNN's bf16 conv of the same (C, T, k, d) on an
+        # already-transformed (B, C, T) input; no affine, snake or stats
+        # (device time, warm L2)
+        zc = o["x"].transpose(1, 2).contiguous()
+        wc = o["w"].permute(2, 1, 0).contiguous()
+        bc = o["bias"].to(torch.bfloat16)
+        cms = graph_ms(lambda: torch.nn.functional.conv1d(
+            zc, wc, bc, padding=d * (k - 1) // 2, dilation=d), 10)
         bms, by = b1_bound(1, t, c, k, 2, res, PEAK_BF16)
-        for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms)):
-            totals[key] += n * v
+        row = dict(ms=ems, device_ms=dms, cold_ms=cold, plain_ms=pms,
+                   bound_ms=bms, conv_ms=cms)
+        detail.append(dict(c=c, t=t, k=k, d=d, residual=res, stats=st,
+                           launches=n, **row))
+        for key in keys:
+            totals[key] += n * row[key]
         totals["ops_ms"] += n * (bms if by == "operations" else 0.0)
         totals["n"] += n
-        ps = per_stage.setdefault((c, t), [0, 0.0, 0.0, 0.0])
-        ps[0] += n
-        ps[1] += n * ms
-        ps[2] += n * pms
-        ps[3] += n * bms
-    for (c, t), (n, ms, pms, bms) in per_stage.items():
-        print(f"[3 B1 time] bf16 C={c} T={t}: {n} launches, kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms",
-              flush=True)
+        ps = per_stage.setdefault((c, t), dict.fromkeys(keys + ("n",), 0.0))
+        ps["n"] += n
+        for key in keys:
+            ps[key] += n * row[key]
+    def times(v):
+        return (f"kernel {v['ms']:.3f} ms in eager calls, {v['device_ms']:.3f}"
+                f" ms on the device (warm L2), {v['cold_ms']:.3f} ms (cold "
+                f"L2); plain {v['plain_ms']:.3f} ms, bound "
+                f"{v['bound_ms']:.4f} ms, cuDNN conv part alone "
+                f"{v['conv_ms']:.3f} ms on the device")
+
+    for (c, t), ps in per_stage.items():
+        print(f"[3 B1 time] bf16 C={c} T={t}: {int(ps['n'])} launches, "
+              f"{times(ps)}", flush=True)
     by = "operations" if totals["ops_ms"] >= totals["bound_ms"] / 2 else "bytes"
     print(f"[3 B1 time] one bf16 phase-2 call at frame bucket {frame_bucket}"
-          f": {totals['n']} launches, kernel {totals['ms']:.3f} ms, plain "
-          f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms "
-          f"({by})", flush=True)
-    return dict(max_abs_err=max_err, ms=totals["ms"],
-                plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
-                bound_by=by)
+          f": {totals['n']} launches, {times(totals)} ({by})", flush=True)
+    return dict(max_abs_err=max_err, bound_by=by, detail=detail,
+                **{key: totals[key] for key in keys})
 
 
 def phase_b2(chk: Checks):
@@ -247,20 +352,23 @@ def phase_b2(chk: Checks):
         ok = bool(torch.allclose(got, want, atol=2e-5, rtol=1e-4))
         max_err = max(max_err, err)
         chk.check(ok, f"B2 {name}: err {err:.3g}")
-        ms = cuda_ms(lambda: MK.log_mel(wave, **kw), 10)
+        # ms: eager calls (as in earlier PRs); device ms: graph replay
+        ems = cuda_ms(lambda: MK.log_mel(wave, **kw), 10)
+        dms = graph_ms(lambda: MK.log_mel(wave, **kw), 10)
         pms = cuda_ms(lambda: MK.log_mel_plain(wave, **kw), 5)
         n = b * got.shape[2]
         f = n_fft // 2 + 1
         bms, by = bound_ms(4.0 * n * n_fft * f + 2.0 * n * f * m,
                            n * n_fft * 4 + 2 * n_fft * f * 4 + n * m * 4,
                            PEAK_F32)
-        out[name] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        out[name] = dict(ms=ems, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by)
         print(f"[4 B2] {name} ({b}x{t}, n_fft {n_fft}, {m} mels, {n} "
               f"frames): max abs err {err:.3g} (atol 2e-5 + rtol 1e-4), "
-              f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
-              f"({by})", flush=True)
-    main = out["style B=1"]
-    return dict(max_abs_err=max_err, **main)
+              f"kernel {ems:.3f} ms in eager calls, {dms:.3f} ms on the "
+              f"device; plain {pms:.3f} ms, bound {bms:.4f} ms ({by})",
+              flush=True)
+    return dict(max_abs_err=max_err, shapes=out, **out["style B=1"])
 
 
 def phase_engine(chk: Checks, cfg, card: str):
@@ -352,6 +460,12 @@ def phase_f32_vs_cpu(chk: Checks, cfg):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write the measurements here")
+    ap.add_argument("--b1-only", action="store_true",
+                    help="run phases 1-3 only and print no result line")
+    ap.add_argument("--package-from", metavar="DIR",
+                    help="import styletts2_tpu_torch from the checkout in "
+                    "DIR instead of this one (with --b1-only: time another "
+                    "commit's kernel with this script's timers)")
     args = ap.parse_args()
     try:
         import torch
@@ -361,11 +475,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "styletts2_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke: run from a checkout of the repository (no "
-              "styletts2_tpu_torch next to this script)", file=sys.stderr)
+    root = Path(args.package_from).resolve() if args.package_from else ROOT
+    if not (root / "styletts2_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: run from a checkout of the repository (no "
+              f"styletts2_tpu_torch in {root})", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     from styletts2_tpu_torch.config import load_config
     from styletts2_tpu_torch.ops import _build
 
@@ -387,8 +502,15 @@ def main() -> int:
     print(f"[2 build] nvcc {', '.join(f'{k} {v:.1f} s' for k, v in took.items()) or 'up to date'}"
           f"; total {time.perf_counter() - t0:.1f} s", flush=True)
 
-    cfg = load_config(str(ROOT / "configs" / "config_example.yaml"))
+    cfg = load_config(str(root / "configs" / "config_example.yaml"))
     b1 = phase_b1(chk, cfg, frame_bucket=256)
+    if args.b1_only:
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"card": card, "package": str(root), "b1": b1,
+                 "failed": chk.failed}, indent=1))
+        return 1 if chk.failed else 0
     b2 = phase_b2(chk)
     n_b1, n_b2 = phase_engine(chk, cfg, card)
     phase_f32_vs_cpu(chk, cfg)
@@ -399,19 +521,21 @@ def main() -> int:
              replaces="styletts2_tpu/ops/vocoder_pallas.py:226",
              launches=n_b1, max_abs_err=b1["max_abs_err"], ms=b1["ms"],
              plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
-             bound_by=b1["bound_by"], library_ms=None),
+             bound_by=b1["bound_by"], library_ms=None,
+             device_ms=b1["device_ms"], device_cold_l2_ms=b1["cold_ms"]),
         dict(name="fused_log_mel", route="cuda",
              source="styletts2_tpu_torch/csrc/mel.cu",
              replaces="styletts2_tpu/ops/mel_pallas.py:82",
              launches=n_b2, max_abs_err=b2["max_abs_err"], ms=b2["ms"],
              plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
-             bound_by=b2["bound_by"], library_ms=None),
+             bound_by=b2["bound_by"], library_ms=None,
+             device_ms=b2["device_ms"]),
     ]
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
-            {"card": card, "kernels": kernels, "failed": chk.failed},
-            indent=1))
+            {"card": card, "kernels": kernels, "b1": b1, "b2": b2,
+             "failed": chk.failed}, indent=1))
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} checks failed: {chk.failed}",
               file=sys.stderr)

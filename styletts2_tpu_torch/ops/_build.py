@@ -6,8 +6,9 @@ into `build/styletts2_tpu_torch/lib<name>-<hash>.so` at first use:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o lib<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source and the flags, so an edited source rebuilds and
-a stale library is never loaded. `build()` starts one nvcc per missing
+The hash covers the source, every header in `csrc/` (the sources include
+`ptx.cuh`) and the flags, so an edited source or header rebuilds and a
+stale library is never loaded. `build()` starts one nvcc per missing
 library, all at once, and waits for all of them. Nothing here runs at
 import time: the CPU tests import every module of the package on a host
 that has no nvcc.
@@ -42,10 +43,11 @@ SIGNATURES = {
     "vocoder": {
         "ada_snake_conv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _P]),
-        "ada_snake_conv_rows_per_block": (_I, [_I]),
+        "ada_snake_conv_rows_per_block": (_I, [_I, _I]),
     },
     "mel": {
-        "log_mel": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P]),
+        "log_mel": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                         _P]),
     },
 }
 
@@ -62,8 +64,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where library `name` is built: the file name carries a hash of its
+    source, of every header in csrc/ (by name and content) and of the
+    nvcc flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.h")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -3,8 +3,11 @@
 Replaces styletts2_tpu/ops/mel_pallas.py fused_log_mel. Framing (reflect
 pad + strided frames) stays in PyTorch; the kernel computes
 `(log(1e-5 + ((frames@cos)^2 + (frames@sin)^2) @ fb) - mean) / std` with
-the power spectrum kept on chip. `log_mel` launches the kernel for CUDA
-tensors and runs `log_mel_plain` for CPU tensors; there is no other route.
+the power spectrum kept on chip. Its grid splits the frequency axis into
+tiles of TF columns: the first pass writes one partial mel per tile to a
+scratch tensor, the second sums them in tile order and log-normalises.
+`log_mel` launches the kernel for CUDA tensors and runs `log_mel_plain`
+for CPU tensors; there is no other route.
 The style path calls it once per `compute_style` (twice when a >= 1-s tail
 window remains).
 """
@@ -76,12 +79,15 @@ def log_mel(wave: torch.Tensor, sr: int = 24000, n_fft: int = 2048,
     n_frames = frames.shape[1]
     cos_p, sin_p, fb_p = _device_bases(sr, n_fft, win_length, n_mels,
                                        wave.device)
-    out = torch.empty(b * n_frames, n_mels, dtype=torch.float32,
-                      device=wave.device)
+    rows = b * n_frames
+    partial = torch.empty(cos_p.shape[1] // TF, rows, fb_p.shape[1],
+                          dtype=torch.float32, device=wave.device)
+    out = torch.empty(rows, n_mels, dtype=torch.float32, device=wave.device)
     stream = torch.cuda.current_stream(wave.device).cuda_stream
     err = lib.log_mel(frames.data_ptr(), cos_p.data_ptr(), sin_p.data_ptr(),
-                      fb_p.data_ptr(), out.data_ptr(), b * n_frames, n_fft,
-                      cos_p.shape[1], n_mels, float(mean), float(std), stream)
+                      fb_p.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                      rows, n_fft, cos_p.shape[1], n_mels, float(mean),
+                      float(std), stream)
     if err != 0:
         raise RuntimeError(f"log_mel kernel launch failed: CUDA error {err}")
     log_mel.launches += 1

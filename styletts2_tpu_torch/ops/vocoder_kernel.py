@@ -12,11 +12,14 @@ at the default config.
     out = conv1d_same(z, w, dilation) + bias (+ residual), f32 accumulation
 
 `ada_snake_conv` launches the kernel for CUDA tensors and runs
-`ada_snake_conv_plain` for CPU tensors; there is no other route. The
-weight is prepacked (k, C_in, C_out) in x's dtype (weights.py / the
-block's `prepack`). The optional stats are the masked [sum, sum of
-squares] of the quantized output per (batch, channel), shape (B, 2, C):
-the kernel writes per-block partials that are summed here.
+`ada_snake_conv_plain` for CPU tensors; there is no other route. bf16
+runs its products on the tensor cores (wgmma), f32 on the CUDA cores in
+true f32. The weight is prepacked (k, C_in, C_out) in x's dtype
+(weights.py / the block's `prepack`) for both; the bf16 kernel reads it
+N-major. The optional stats are the masked [sum, sum of squares] of the
+quantized output per (batch, channel), shape (B, 2, C): the kernel writes
+per-block partials, (B, 2, C, blocks along T), that are summed here over
+the last axis (deterministic: no atomics).
 """
 
 from __future__ import annotations
@@ -136,12 +139,17 @@ def ada_snake_conv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         raise ValueError(f"ada_snake_conv kernel needs C % 32 == 0, got {c}")
     from styletts2_tpu_torch.ops import _build
 
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    for name, v in (("x", x), ("w", w), ("residual", residual)):
+        if v is not None and v.data_ptr() % 16:
+            raise ValueError(f"ada_snake_conv kernel needs 16-byte aligned "
+                             f"{name}")
     lib = _build.load("vocoder")
     out = torch.empty_like(x)
     stats = None
     if out_stats:
-        rows = lib.ada_snake_conv_rows_per_block(c)
-        stats = torch.empty(b, -(-t // rows), 2, c, dtype=torch.float32,
+        rows = lib.ada_snake_conv_rows_per_block(c, is_bf16)
+        stats = torch.empty(b, 2, c, -(-t // rows), dtype=torch.float32,
                             device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ada_snake_conv(
@@ -149,14 +157,14 @@ def ada_snake_conv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         w.data_ptr(), bias.data_ptr(), n_valid.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         None if stats is None else stats.data_ptr(), b, t, c, w.shape[0],
-        int(dilation), int(x.dtype == torch.bfloat16), stream)
+        int(dilation), is_bf16, stream)
     if err != 0:
         raise RuntimeError(f"ada_snake_conv kernel launch failed: CUDA "
                            f"error {err}")
     ada_snake_conv.launches += 1
     if not out_stats:
         return out
-    return out, stats.sum(dim=1)
+    return out, stats.sum(dim=-1)
 
 
 ada_snake_conv.launches = 0

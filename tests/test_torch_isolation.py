@@ -1,5 +1,5 @@
-"""styletts2_tpu_torch imports torch, never jax, and nothing of the
-styletts2_tpu package.
+"""styletts2_tpu_torch and chip_smoke.py import torch, never jax, and
+nothing of the styletts2_tpu package.
 
 The import check runs in a fresh interpreter: conftest has already imported
 jax (and styletts2_tpu) into this process."""
@@ -42,7 +42,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")
 
 def test_no_source_line_imports_jax_or_the_jax_package():
     offenders = []
-    for path in sorted(PKG.rglob("*.py")):
+    for path in sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for i, line in enumerate(path.read_text().splitlines(), 1):
             m = _IMPORT.match(line)
             if not m:

@@ -49,6 +49,32 @@ def test_log_mel_plain_matches_jax(name):
     np.testing.assert_allclose(got, pallas, **TOL)
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_frequency_split_matches_plain(name):
+    """Kernel B2's decomposition on its own padded operands: one partial
+    mel per TF-column frequency tile (what each block of the first pass
+    writes), summed over the tiles in order (the second pass), then
+    log-normalised, equals the plain version."""
+    case = dict(CASES[name])
+    t = case.pop("t")
+    rng = np.random.default_rng(len(name) + 11)
+    wave = torch.from_numpy((rng.standard_normal((1, t)) * 0.3)
+                            .astype(np.float32))
+    cos_p, sin_p, fb_p = MK._device_bases(
+        24000, case["n_fft"], case["win_length"], case["n_mels"],
+        torch.device("cpu"))
+    assert cos_p.shape[1] % MK.TF == 0 and fb_p.shape[1] % 16 == 0
+    frames = TS.frame_signal(wave, case["n_fft"], case["hop_length"])[0]
+    mel = torch.zeros(frames.shape[0], fb_p.shape[1])
+    for f0 in range(0, cos_p.shape[1], MK.TF):
+        re = frames @ cos_p[:, f0:f0 + MK.TF]
+        im = frames @ sin_p[:, f0:f0 + MK.TF]
+        mel = mel + (re * re + im * im) @ fb_p[f0:f0 + MK.TF]
+    got = TS.log_mel_normalize(mel[:, :case["n_mels"]].T[None])
+    want = MK.log_mel_plain(wave, sr=24000, **case)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
 def test_preprocess_wave_routes_to_b2_plain_on_cpu():
     """The engine's entry (ops.stft.preprocess_wave) on a CPU batch equals
     the plain version row by row and never launches the kernel."""
