@@ -17,7 +17,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -146,16 +145,36 @@ def bilstm(hidden_in: int, hidden: int) -> nn.LSTM:
     return nn.LSTM(hidden_in, hidden, batch_first=True, bidirectional=True)
 
 
+def _shift_rows(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """out[b, t] = x[b, t - shift[b]] where 0 <= t - shift[b] < T, else 0;
+    shift (B,) int64 on x's device (a gather: no host sync)."""
+    t = x.shape[1]
+    src = torch.arange(t, device=x.device)[None, :] - shift[:, None]
+    inside = (src >= 0) & (src < t)
+    idx = torch.clamp(src, 0, t - 1)[..., None].expand(-1, -1, x.shape[2])
+    return torch.where(inside[..., None], torch.gather(x, 1, idx),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def lstm(mod: nn.LSTM, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(B, T, In) -> (B, T, 2H) with per-row valid prefix lengths from
-    `mask` (B, T): packed sequences, so each direction starts from the zero
-    state at its row's own ends, and padded rows come back as zeros — the
-    masked-carry semantics of the JAX scan."""
-    t = x.shape[1]
-    lengths = mask.sum(dim=1).to(device="cpu", dtype=torch.int64)
-    packed = pack_padded_sequence(x, torch.clamp(lengths, min=1),
-                                  batch_first=True, enforce_sorted=False)
-    out, _ = mod(packed)
-    out, _ = pad_packed_sequence(out, batch_first=True, total_length=t)
-    return torch.where(mask[..., None], out, torch.zeros((), dtype=out.dtype,
-                                                         device=out.device))
+    `mask` (B, T): each direction starts from the zero state at its row's
+    own ends, and padded rows come back as zeros — the masked-carry
+    semantics of the JAX scan (styletts2_tpu/nn/layers.py lstm_apply).
+
+    No host sync and one shape for every length, so a CUDA graph captures
+    it: one bidirectional call runs over 2B rows, the rows as given
+    (left-aligned: the forward half is read there, padding only follows
+    the valid steps) and the same rows right-aligned (the reverse half is
+    read there, padding only follows in reverse order, then gathered back
+    to the left). At batch 1 the recurrence is latency-bound, so 2B rows
+    cost about what B rows do."""
+    b, t, _ = x.shape
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    x = torch.where(mask[..., None], x, zero)
+    pad = t - mask.sum(dim=1)
+    out, _ = mod(torch.cat([x, _shift_rows(x, pad)], dim=0))
+    h = out.shape[2] // 2
+    rev = _shift_rows(out[b:, :, h:], -pad)
+    out = torch.cat([out[:b, :, :h], rev], dim=-1)
+    return torch.where(mask[..., None], out, zero)

@@ -135,11 +135,10 @@ def _interp_linear_int_up(x: torch.Tensor, u: int) -> torch.Tensor:
     blends source q with its left or right neighbour at a fixed per-phase
     weight (edge-clamped), written as q + fr for better f32 conditioning."""
     n = x.shape[-1]
-    r = np.arange(u, dtype=np.float32)
-    fr = (r + 0.5) / u - 0.5
-    use_prev = torch.from_numpy(fr < 0).to(x.device)
-    w = torch.from_numpy(np.where(fr < 0, -fr, fr).astype(np.float32)).to(
-        device=x.device, dtype=x.dtype)
+    # built on x's device: a host-to-device copy would break graph capture
+    fr = (torch.arange(u, dtype=torch.float32, device=x.device) + 0.5) / u - 0.5
+    use_prev = fr < 0
+    w = torch.abs(fr).to(x.dtype)
     x_prev = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
     x_next = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)
     nb = torch.where(use_prev, x_prev[..., None], x_next[..., None])

@@ -73,8 +73,9 @@ def ada_snake_conv_plain(x: torch.Tensor, scale: torch.Tensor,
     zp = F.pad(z, (0, 0, halo, halo))
     wf = w.float()
     acc = torch.zeros(b, t, c, dtype=torch.float32, device=x.device)
-    for i in range(k):
-        acc = acc + torch.matmul(zp[:, i * dilation: i * dilation + t], wf[i])
+    for i in range(k):  # accumulate in place: no (B, T, C) temporary a tap
+        acc.baddbmm_(zp[:, i * dilation: i * dilation + t],
+                     wf[i].expand(b, c, c))
     acc = acc + bias.float()
     if residual is not None:
         acc = acc + residual.float()

@@ -1,11 +1,13 @@
-"""Where one `generate` call spends its time on the GPU.
+"""Where one `generate` call spends its time on the GPU, on both paths.
 
     python -m styletts2_tpu_torch.profile_generate [--text TEXT] [--top N]
 
 Builds the engine on the default config (bf16 decoder, seeded random
-weights), warms it up, then traces one `generate` with torch.profiler and
-prints the device time by kernel, the device busy time against the wall
-time, and the card's name and power limit. Needs a CUDA device.
+weights), warms it up, then traces one `generate` with torch.profiler on
+the fused path (a single-chunk text replays its CUDA graph) and one with
+`fused_enabled = False` (the two-phase path, eager), and prints for each
+the device time by kernel and the device busy time against the wall time,
+with the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,6 +26,34 @@ from styletts2_tpu_torch.infer import StyleTTS2
 CONFIG = Path(__file__).resolve().parent.parent / "configs" / "config_example.yaml"
 
 
+def profile_one(engine: StyleTTS2, text: str, style, top: int) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):  # warm-up: cuDNN plans, kernel loads, graph capture
+        engine.generate(text, style)
+    torch.cuda.synchronize()
+    replays = engine.graph_replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wav = engine.generate(text, style)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    path = ("fused graph" if engine.graph_replays > replays
+            else "two-phase")
+    print(f"{path}: {len(wav) / engine.sr:.2f} s audio, wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / (wall * 1e3):.1f}% of wall, idle "
+          f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%), "
+          f"{sum(e.count for e in events)} device events")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
+        print(f"{e.device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
+              f"{e.key[:100]}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--text", default="Hello there, how are you today?")
@@ -31,7 +61,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: no CUDA device")
-    from torch.profiler import ProfilerActivity, profile
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -41,25 +70,14 @@ def main() -> None:
     clip = (0.1 * np.random.default_rng(0).standard_normal(sr * 5)).astype(
         np.float32)
     style = {"style": engine.compute_style(clip)}
-    for _ in range(2):  # warm-up: cuDNN plans, kernel loads
-        engine.generate(args.text, style)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        wav = engine.generate(args.text, style)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in events)
     print(f"card: {card}")
-    print(f"generate: {len(wav) / sr:.2f} s audio, wall {wall * 1e3:.1f} ms, "
-          f"device busy {busy_us / 1e3:.1f} ms "
-          f"({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of wall)")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[: args.top]:
-        print(f"{e.device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
-              f"{e.key[:100]}")
+    for fused in (True, False):
+        engine.fused_enabled = fused
+        profile_one(engine, args.text, style, args.top)
+    graphs = ", ".join(f"({tb}, {fb}): {g.peak_bytes / 2 ** 20:.1f} MiB"
+                       for (tb, fb), g in sorted(engine.graphs.items()))
+    print(f"fused graphs (token bucket, frame bucket): peak allocated while "
+          f"capturing: {graphs}")
 
 
 if __name__ == "__main__":

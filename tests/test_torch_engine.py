@@ -4,7 +4,9 @@ tests/test_quick_e2e.py (hop 60, rates [10, 6], f32 decoder), both built
 from the same JAX build_model parameters.
 
 Single-chunk texts only: the JAX batched multi-chunk path disagrees with
-itself (test_infer.py::test_chunk_batching_matches_single)."""
+itself (test_infer.py::test_chunk_batching_matches_single). Both engines
+take the two-phase path here; test_torch_serving.py holds the fused path
+and the batched plan."""
 
 import jax
 import numpy as np
@@ -44,8 +46,9 @@ def engines():
     params = jax.tree.map(np.asarray,
                           build_model(jax.random.PRNGKey(0), jcfg.model_params))
     jax_engine = JaxStyleTTS2(jcfg, params=params, seed=0)
-    jax_engine.fused_enabled = False  # the two-phase path the port mirrors
+    jax_engine.fused_enabled = False  # the two-phase path on both sides
     port = StyleTTS2(load_config(CFG), params=params, seed=0, device="cpu")
+    port.fused_enabled = False
     return jax_engine, port
 
 

@@ -54,6 +54,23 @@ def test_lstm_packed_matches_masked_scan():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def test_lstm_capturable_ragged_rows_match_masked_scan():
+    """The sync-free BiLSTM (left- and right-aligned rows in one call, no
+    packed sequences) against lstm_apply on a batch of 3 rows of valid
+    lengths 1, mid and full, padding nonzero on the way in: atol 1e-5."""
+    rng = np.random.default_rng(2)
+    tree = _np_tree(JL.lstm_init(jax.random.PRNGKey(4), 20, 12))
+    x = rng.standard_normal((3, 17, 20)).astype(np.float32)
+    mask = _masks([1, 9, 17], 17)
+    want = JL.lstm_apply(tree, jnp.asarray(x), jnp.asarray(mask))
+    mod = _load(TL.bilstm(20, 12), tree)
+    with torch.no_grad():
+        got = TL.lstm(mod, torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    assert not got.numpy()[~mask].any()
+
+
 def test_adain_and_layer_norms_match():
     rng = np.random.default_rng(1)
     b, t, c, sd = 2, 30, 24, 8
