@@ -36,7 +36,18 @@ Phases, each printed on its own line:
      text's generate on both devices, what one phase-2 call moves on CUDA
      at another batch size or frame bucket, and serve against
      generate_batch on CUDA;
-  7. the kernels line (JSON), the card line, and the result line.
+  7. training at full width (config_example.yaml: batch 5, max_len 300,
+     f32): a workspace of seeded synthetic 24 kHz WAVs in two duration
+     bins and a seeded random-weight checkpoint written by the port, then
+     `train_loop.main` for one epoch (4 D/G steps, the eval pass, the
+     epoch checkpoint), checked (finite losses, every trainable module
+     moved, the pitch extractor bit-identical, 8 B2 launches and no B1
+     launch per step, the backward's plain-formula calls), timed (D step,
+     G step, optimizer, peak memory, one profiled step's device busy
+     time), B2 forward and gradient at every training shape, one D/G step
+     on CUDA against the CPU at a small config with the draws fixed, and
+     the checkpoint through the inference engine;
+  8. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
 `--b1-only` stops after phase 3; with `--package-from DIR` the package
@@ -101,6 +112,38 @@ BATCH_TEXTS = [
     "The museum opens at nine and closes at five.",
 ]
 DURATION_SCALE = 0.2
+# training: (first clip's samples, clips) per duration bin (4.0 and 5.0 s;
+# clips step by 400 samples and stay in the bin, 20 frames = 6000 samples
+# per bin); the first bin's last N_VAL clips are the validation set, so
+# batch 5 gives 2 + 2 train steps and 1 eval batch
+TRAIN_BINS = ((96000, 15), (120000, 10))
+N_VAL = 5
+B2_PER_STEP = 8  # compute_mels in the D and G steps + 6 MRSTFT
+B2_PER_EVAL = 7
+STEPS_TIMED = 3  # steps per timed run, without and with the phase syncs
+# the small config of the CUDA-vs-CPU step (the tests' tiny config)
+TRAIN_TINY = {
+    "max_len": 66,
+    "preprocess_params": {"spect_params": {"n_fft": 512, "win_length": 240,
+                                           "hop_length": 60}},
+    "model_params": {
+        "hidden_dim": 64, "max_conv_dim": 64, "dim_in": 16, "style_dim": 32,
+        "max_dur": 10,
+        "ASR_params": {"input_dim": 80, "hidden_dim": 64, "n_layers": 2,
+                       "token_embedding_dim": 64},
+        "decoder": {"type": "hifigan", "upsample_initial_channel": 512,
+                    "upsample_rates": [10, 6],
+                    "upsample_kernel_sizes": [20, 12],
+                    "resblock_kernel_sizes": [3],
+                    "resblock_dilation_sizes": [[1, 3]]}},
+    "tpu": {"decoder_dtype": "float32"}, "debug": False}
+# CUDA vs CPU step: f32 summation order, amplified by random weights. The
+# aligner's gradient bound is about twice what cuDNN's LSTM rounding moves
+# it on the card (1.11e-2, phase_train_parity, which also gates the same
+# step with cuDNN off at TRAIN_GRAD_REL)
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GRAD_REL = 5e-3
+TRAIN_GRAD_BOUND = {"text_aligner": 2.5e-2}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -151,6 +194,18 @@ def bound_ms(flops: float, nbytes: float, peak: float):
     t_ops, t_mem = flops / peak, nbytes / HBM_BYTES_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
                                      else "bytes")
+
+
+def b2_bound(b, t, frames, n_fft, win, m):
+    """Kernel B2's bound for (b, t) waves at n_fft/win/m: the function's
+    own work. The Hann window is zero outside its win taps
+    (ops/stft.py hann_window), so each frame's DFT needs win taps, not
+    n_fft: 4 N win F operations for the two products, 2 N F M for the
+    filterbank. Bytes: the waves read once, the windowed bases (2 win F)
+    and the filterbank (F M) once, the mels written once."""
+    n, f = b * frames, n_fft // 2 + 1
+    return bound_ms(4.0 * n * win * f + 2.0 * n * f * m,
+                    4.0 * (b * t + 2 * win * f + f * m + n * m), PEAK_F32)
 
 
 class Checks:
@@ -394,10 +449,7 @@ def phase_b2(chk: Checks):
         dms = graph_ms(lambda: MK.log_mel(wave, **kw), 10)
         pms = cuda_ms(lambda: MK.log_mel_plain(wave, **kw), 5)
         n = b * got.shape[2]
-        f = n_fft // 2 + 1
-        bms, by = bound_ms(4.0 * n * n_fft * f + 2.0 * n * f * m,
-                           n * n_fft * 4 + 2 * n_fft * f * 4 + n * m * 4,
-                           PEAK_F32)
+        bms, by = b2_bound(b, t, got.shape[2], n_fft, win, m)
         out[name] = dict(ms=ems, device_ms=dms, plain_ms=pms, bound_ms=bms,
                          bound_by=by)
         print(f"[4 B2] {name} ({b}x{t}, n_fft {n_fft}, {m} mels, {n} "
@@ -868,6 +920,405 @@ def phase_f32_vs_cpu(chk: Checks, cfg):
     print(f"[6 f32] CUDA serve == generate_batch {same}", flush=True)
 
 
+def train_workspace(ws: Path, cfg_src: Path) -> Path:
+    """Seeded synthetic 24 kHz WAVs (a harmonic tone with vibrato, tremolo
+    and noise) in the TRAIN_BINS, train and val lists of random words, and
+    the config at cfg_src pointed at them and at ws/seed.ckpt, with
+    batch_size 5, max_len 300, one epoch. Returns the config's path."""
+    import yaml
+
+    from styletts2_tpu_torch import audio as AUD
+
+    shutil.rmtree(ws, ignore_errors=True)
+    (ws / "wavs").mkdir(parents=True)
+    rng = np.random.default_rng(11)
+    letters = list("abcdefghijklmnopqrstuvwxyzðəɪʊŋɹʃθ")
+    train, val = [], []
+    for b, (first, n_clips) in enumerate(TRAIN_BINS):
+        for i in range(n_clips):
+            n = first + 400 * i
+            t = np.arange(n) / 24000.0
+            f0 = rng.uniform(100, 220) * (1 + 0.05 * np.sin(2 * np.pi * 5 * t))
+            phase = 2 * np.pi * np.cumsum(f0) / 24000.0
+            wav = sum(np.sin(h * phase) / h for h in range(1, 6)) * 0.15
+            wav = (wav * (0.6 + 0.4 * np.sin(2 * np.pi * 1.5 * t))
+                   + 0.01 * rng.standard_normal(n))
+            name = f"wavs/b{b}_{i:02d}.wav"
+            AUD.write_wav(str(ws / name), wav.astype(np.float32))
+            words = ["".join(rng.choice(letters, rng.integers(2, 7)))
+                     for _ in range(rng.integers(8, 12))]
+            line = f"{name}|{' '.join(words)}.\n"
+            (val if b == 0 and i >= n_clips - N_VAL else train).append(line)
+    (ws / "train_list.txt").write_text("".join(train))
+    (ws / "val_list.txt").write_text("".join(val))
+    raw = yaml.safe_load(cfg_src.read_text())
+    raw.update(log_dir=str(ws / "runs"), save_freq=1, log_interval=1,
+               epochs=1, batch_size=5, max_len=300, debug=False,
+               pretrained_model=str(ws / "seed.ckpt"), load_only_params=True,
+               data_params=dict(train_data=str(ws / "train_list.txt"),
+                                val_data=str(ws / "val_list.txt"),
+                                root_path=str(ws)))
+    path = ws / "config.yaml"
+    path.write_text(yaml.safe_dump(raw, allow_unicode=True))
+    return path
+
+
+def moved_modules(net_before, modules):
+    """{module: whether any of its tensors differs from net_before}."""
+    import torch
+
+    from styletts2_tpu_torch import weights as W
+
+    out = {}
+    for k, m in modules.items():
+        before = W.tree_to_state_dict(net_before[k], fuse=False)
+        out[k] = any(not torch.equal(before[n], v.detach().cpu())
+                     for n, v in m.state_dict().items())
+    return out
+
+
+def phase_train(chk: Checks, root: Path, card: str):
+    """Training at full width through train_loop.main, then its checks,
+    times and profile, B2 at the training shapes, the CUDA-vs-CPU step and
+    the engine on the trained checkpoint. Returns (launch counts of the
+    main run, the measurements)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from styletts2_tpu_torch import train_loop
+    from styletts2_tpu_torch import weights as W
+    from styletts2_tpu_torch.checkpoint import save_checkpoint
+    from styletts2_tpu_torch.config import load_config
+    from styletts2_tpu_torch.data.loader import collate
+    from styletts2_tpu_torch.models import build_model
+    from styletts2_tpu_torch.ops import mel_kernel as MK
+    from styletts2_tpu_torch.ops import vocoder_kernel as VK
+    from styletts2_tpu_torch.train import (DISC_MODULES, GEN_MODULES, Batch,
+                                          PhaseTimes)
+
+    ws = root / "build" / "train_smoke"
+    t0 = time.perf_counter()
+    cfg_path = train_workspace(ws, root / "configs" / "config_example.yaml")
+    cfg = load_config(str(cfg_path))
+    mods = build_model(cfg.model_params)
+    W.init_random(mods, torch.Generator().manual_seed(0))
+    W.split_weight_norm(mods)
+    save_checkpoint(str(ws / "seed.ckpt"), mods)
+    seed_net = {k: W.module_tree(m) for k, m in mods.items()}
+    n_params = sum(p.numel() for p in mods.parameters())
+    del mods
+    print(f"[7 train] workspace: {len(TRAIN_BINS)} bins, seed checkpoint "
+          f"({n_params} parameters) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MK.log_mel.launches = VK.ada_snake_conv.launches = 0
+    trainer, wall = timed(lambda: train_loop.main(["-p", str(cfg_path)]))
+    counts = dict(b1=VK.ada_snake_conv.launches, b2=MK.log_mel.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist, evals = trainer.history, trainer.evals
+    n_steps = len(hist)
+    print(f"[7 train] train_loop.main: {n_steps} steps (bins "
+          f"{[h['bin'] for h in hist]}), {len(evals)} eval batches in "
+          f"{wall:.1f} s; launches {counts}; peak allocated {peak:.2f} GiB "
+          f"| {card}", flush=True)
+    chk.check(3 <= n_steps <= 5 and len(evals) >= 1,
+              f"train: {n_steps} steps, {len(evals)} evals")
+    chk.check(counts["b2"] == B2_PER_STEP * n_steps + B2_PER_EVAL * len(evals)
+              and counts["b1"] == 0, f"train launches {counts}")
+    finite = all(np.isfinite(v) for h in hist for v in h["metrics"].values())
+    finite = finite and all(np.isfinite(v) for e in evals for v in e.values())
+    chk.check(finite, "train: every D and G loss finite")
+    for i, h in enumerate(hist):
+        print(f"[7 train] step {i}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in h["metrics"].items()), flush=True)
+    moved = moved_modules(seed_net, trainer.modules)
+    chk.check(all(moved[k] for k in GEN_MODULES + DISC_MODULES),
+              f"train: every trainable module moved {moved}")
+    chk.check(not moved["pitch_extractor"],
+              "train: pitch_extractor bit-identical")
+
+    host_ms = float(np.median([h["step_ms"] for h in hist[1:]]))
+    print(f"[7 train] main run (no phase syncs): host wall per step call, "
+          f"median of steps 1-{n_steps - 1}: {host_ms:.1f} ms; first step "
+          f"{hist[0]['step_ms']:.1f} ms; peak allocated {peak:.2f} GiB "
+          f"| {card}", flush=True)
+
+    # one more step of the first bin: its launches and the plain formula's
+    # calls (the backward's recomputes only), then one profiled step
+    sampler = trainer.train_loader.sampler
+    bin_id = sorted(sampler.time_bins)[0]
+    idx = sampler.time_bins[bin_id][:cfg.batch_size]
+    batch = Batch.from_numpy(collate(trainer.train_loader.dataset, idx,
+                                     bin_id), "cuda")
+    step = trainer.train_step_for(bin_id)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    plain = MK.log_mel_plain
+    n_plain = [0]
+
+    def counted_plain(*a, **k):
+        n_plain[0] += 1
+        return plain(*a, **k)
+
+    MK.log_mel_plain = counted_plain
+    MK.log_mel.launches = VK.ada_snake_conv.launches = 0
+    try:
+        step(trainer.modules, batch, gen)
+        torch.cuda.synchronize()
+    finally:
+        MK.log_mel_plain = plain
+    one = dict(b1=VK.ada_snake_conv.launches, b2=MK.log_mel.launches,
+               plain=n_plain[0])
+    chk.check(one == dict(b1=0, b2=B2_PER_STEP, plain=3),
+              f"one step: {one} (want B2 {B2_PER_STEP}, B1 0, the plain "
+              "formula only in the 3 MRSTFT backward recomputes)")
+    print(f"[7 train] one step of bin {bin_id}: B2 {one['b2']} launches, "
+          f"B1 {one['b1']}, log_mel_plain {one['plain']} calls (the MRSTFT "
+          f"backward)", flush=True)
+
+    # the step on this batch without and with the phase syncs (a
+    # train.PhaseTimes; train_loop passes none), alternated: synchronised
+    # before and after each run of STEPS_TIMED steps only, or also at each
+    # phase mark
+    def run_steps(phases: bool):
+        recs = [PhaseTimes("cuda") if phases else None
+                for _ in range(STEPS_TIMED)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for rec in recs:
+            step(trainer.modules, batch, gen, times=rec)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / STEPS_TIMED, recs
+
+    free, synced, split = [], [], []
+    for _ in range(2):
+        free.append(run_steps(False)[0])
+        ms, recs = run_steps(True)
+        synced.append(ms)
+        split += [r.ms for r in recs]
+
+    def med(key):
+        return float(np.median([key(r) for r in split]))
+
+    times = dict(
+        step_ms=float(np.median(free)), step_phase_synced_ms=float(
+            np.median(synced)), free_runs_ms=free, synced_runs_ms=synced,
+        d_step_ms=med(lambda r: r["d_grads"] + r["d_opt"]),
+        g_step_ms=med(lambda r: r["g_grads"] + r["g_opt"]),
+        optimizer_ms=med(lambda r: r["d_opt"] + r["g_opt"]),
+        main_run_host_ms=host_ms, first_step_ms=hist[0]["step_ms"],
+        peak_gib=peak)
+    print(f"[7 train] step of bin {bin_id}, {STEPS_TIMED} steps per run, "
+          f"runs alternated: without phase syncs {free[0]:.1f}, "
+          f"{free[1]:.1f} ms per step; with them {synced[0]:.1f}, "
+          f"{synced[1]:.1f} ms = D step {times['d_step_ms']:.1f} + G step "
+          f"{times['g_step_ms']:.1f} (optimizer {times['optimizer_ms']:.1f} "
+          f"of them; medians) | {card}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, pwall = timed(lambda: step(trainer.modules, batch, gen))
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.device_time_total)[:8]
+    prof_out = dict(wall_ms=pwall * 1e3, busy_ms=busy,
+                    idle=1.0 - busy / (pwall * 1e3),
+                    events=sum(e.count for e in events),
+                    top=[(e.key[:80], e.device_time_total / 1e3, e.count)
+                         for e in top])
+    print(f"[7 train] profiled step: wall {pwall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle {100 * prof_out['idle']:.1f}%, "
+          f"{prof_out['events']} device events | {card}", flush=True)
+    for key, ms, n in prof_out["top"]:
+        print(f"[7 train]   {ms:9.3f} ms {n:6d} x {key}", flush=True)
+
+    shapes = phase_train_b2(chk, trainer, card)
+    parity = phase_train_parity(chk)
+
+    from styletts2_tpu_torch.infer import StyleTTS2
+
+    ckpt = Path(cfg.log_dir) / "epoch_00000.ckpt"
+    engine = StyleTTS2(str(cfg_path), models_path=str(ckpt))
+    ref_s = engine.compute_style(
+        (0.1 * np.random.default_rng(4).standard_normal(24000 * 3))
+        .astype(np.float32))
+    wav = engine.generate(TEXTS["short"], {"style": ref_s, "speed": 1.0})
+    ok = wav.size > 8000 and bool(np.isfinite(wav).all())
+    chk.check(ok, "the trained checkpoint through the inference engine")
+    print(f"[7 train] {ckpt.name} in the inference engine: generate "
+          f"{len(wav)} samples, finite {bool(np.isfinite(wav).all())}",
+          flush=True)
+    return counts, dict(steps=n_steps, evals=len(evals), wall_s=wall,
+                        times=times, profile=prof_out, b2_shapes=shapes,
+                        cuda_vs_cpu=parity,
+                        losses=[h["metrics"] for h in hist])
+
+
+def phase_train_b2(chk: Checks, trainer, card: str):
+    """B2 at every shape the training run gave it: compute_mels per bin
+    and the three MRSTFT resolutions on the crops, forward against the
+    plain version (eager ms, device ms, plain ms, bound), and the gradient
+    through its autograd.Function against autograd of the plain formula on
+    a random cotangent at the MRSTFT shapes (the same backward formula)."""
+    import torch
+
+    from styletts2_tpu_torch.data.loader import (bin_crop_frames,
+                                                 bin_upper_frames)
+    from styletts2_tpu_torch.losses import MRSTFT_RESOLUTIONS
+    from styletts2_tpu_torch.ops import mel_kernel as MK
+
+    cfg = trainer.cfg
+    sp = cfg.preprocess_params.spect_params
+    b = cfg.batch_size
+    bins = sorted({h["bin"] for h in trainer.history})
+    cases = [(f"mels bin {k}", bin_upper_frames(k) * sp.hop_length,
+              sp.n_fft, sp.hop_length, sp.win_length, cfg.model_params.n_mels,
+              False) for k in bins]
+    crop = bin_crop_frames(bins[0], cfg.max_len) * 2 * sp.hop_length
+    cases += [(f"mrstft {fft}", crop, fft, hop, win, 128, True)
+              for fft, hop, win in MRSTFT_RESOLUTIONS]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, t, n_fft, hop, win, m, grad in cases:
+        wave = torch.randn(b, t, generator=gen, device="cuda") * 0.3
+        kw = dict(n_fft=n_fft, hop_length=hop, win_length=win, n_mels=m)
+        got = MK.log_mel(wave, **kw)
+        want = MK.log_mel_plain(wave, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        chk.check(bool(torch.allclose(got, want, atol=2e-5, rtol=1e-4)),
+                  f"B2 {name} B={b}: err {err:.3g}")
+        ems = cuda_ms(lambda: MK.log_mel(wave, **kw), 10)
+        dms = graph_ms(lambda: MK.log_mel(wave, **kw), 10)
+        pms = cuda_ms(lambda: MK.log_mel_plain(wave, **kw), 5)
+        n = b * got.shape[2]
+        bms, by = b2_bound(b, t, got.shape[2], n_fft, win, m)
+        row = dict(shape=[b, t], n_fft=n_fft, n_mels=m, frames=n,
+                   max_abs_err=err, ms=ems, device_ms=dms, plain_ms=pms,
+                   bound_ms=bms, bound_by=by)
+        line = ""
+        if grad:
+            w1 = wave.clone().requires_grad_()
+            y1 = MK.log_mel(w1, **kw)
+            cot = torch.randn(y1.shape, generator=gen, device="cuda")
+            g1, = torch.autograd.grad(y1, w1, cot)
+            w2 = wave.clone().requires_grad_()
+            g2, = torch.autograd.grad(MK.log_mel_plain(w2, **kw), w2, cot)
+            rel = ((g1 - g2).norm() / g2.norm()).item()
+            chk.check(rel < 1e-5, f"B2 {name} gradient rel-l2 {rel:.3g}")
+            row["grad_rel_l2"] = rel
+            line = f"; gradient rel-l2 {rel:.3g} (bound 1e-5)"
+        out[name] = row
+        print(f"[7 B2] {name} ({b}x{t}, n_fft {n_fft}, {m} mels, {n} "
+              f"frames): max abs err {err:.3g}; kernel {ems:.3f} ms eager, "
+              f"{dms:.3f} ms device; plain {pms:.3f} ms; bound {bms:.4f} ms "
+              f"({by}){line} | {card}", flush=True)
+    return out
+
+
+def phase_train_parity(chk: Checks, devices=("cuda", "cpu")):
+    """One D/G step's losses and gradients on CUDA against the CPU at the
+    small config, same weights, draws fixed (coin soft, crops, source),
+    dropout off; the CUDA step once more with cuDNN off; and one BiLSTM's
+    output with and without cuDNN against the CPU. cuDNN's LSTM rounds
+    its f32 gates differently from the CPU (and from PyTorch's own CUDA
+    kernels); the waveform losses' L1 terms and the TPRLS median selection
+    turn such forward differences into larger gradient differences, most
+    in the aligner (the soft-attention path). Gates: losses rel <
+    TRAIN_LOSS_REL; CUDA without cuDNN vs the CPU < TRAIN_GRAD_REL per
+    module; CUDA vs the CPU < TRAIN_GRAD_BOUND per module."""
+    import copy
+    import types
+
+    import torch
+
+    from styletts2_tpu_torch import train as TT
+    from styletts2_tpu_torch import weights as W
+    from styletts2_tpu_torch.config import load_config
+    from styletts2_tpu_torch.models import build_model
+
+    cfg = load_config(copy.deepcopy(TRAIN_TINY))
+    mods = build_model(cfg.model_params)
+    W.init_random(mods, torch.Generator().manual_seed(3))
+    W.split_weight_norm(mods)
+    mods.train()
+    mods["pitch_extractor"].eval()
+    rng = np.random.default_rng(3)
+    b, t_text, t_mel, crop = 2, 12, 100, 33
+    hop = cfg.preprocess_params.spect_params.hop_length
+    nb = types.SimpleNamespace(
+        waves=(rng.standard_normal((b, t_mel * hop)) * 0.1).astype(np.float32),
+        texts=rng.integers(4, 170, (b, t_text)),
+        input_lengths=np.array([t_text, t_text - 3]),
+        mel_lengths=np.array([t_mel, t_mel - 10]))
+    starts = np.array([5, 2])
+    rand_ini = rng.random((b, 9)).astype(np.float32)
+    rand_ini[:, 0] = 0.0
+    noise = rng.standard_normal((b, 2 * crop * hop, 9)).astype(np.float32)
+
+    def step(dev, cudnn=True):
+        m = copy.deepcopy(mods).to(dev)
+        batch = TT.Batch.from_numpy(nb, dev)
+        draws = TT.Draws(coin=True, starts=torch.tensor(starts, device=dev),
+                         source=(torch.tensor(rand_ini, device=dev),
+                                 torch.tensor(noise, device=dev)),
+                         dropout=False)
+        d_fn, g_fn = TT.make_grad_fns(cfg, crop)
+        # flags() sets every cuDNN flag it is given and defaults TF32 on
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            d_loss, d_g = d_fn(m, batch, None, draws)
+            met, g_g = g_fn(m, batch, None, draws)
+        met["d_loss"] = d_loss
+        grads = {k: torch.cat([g.flatten() for g in v]).cpu()
+                 for k, v in {**d_g, **g_g}.items()}
+        return {k: float(v) for k, v in met.items()}, grads
+
+    dev, ref = devices
+    (mc, gc), (_, gn), (mp, gp) = step(dev), step(dev, False), step(ref)
+
+    def rel(x, y):
+        return {k: float((x[k] - y[k]).norm() / y[k].norm()) for k in y}
+
+    loss_rel = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
+    grad_rel, no_cudnn, cudnn_spread = rel(gc, gp), rel(gn, gp), rel(gc, gn)
+    bound = {k: TRAIN_GRAD_BOUND.get(k, TRAIN_GRAD_REL) for k in gp}
+    chk.check(max(loss_rel.values()) < TRAIN_LOSS_REL,
+              f"train step CUDA vs CPU losses rel {loss_rel}")
+    chk.check(max(no_cudnn.values()) < TRAIN_GRAD_REL,
+              f"train step CUDA without cuDNN vs CPU, gradients rel-l2 "
+              f"{no_cudnn}")
+    chk.check(all(grad_rel[k] < bound[k] for k in gp),
+              f"train step CUDA vs CPU gradients rel-l2 {grad_rel}")
+
+    lstm = torch.nn.LSTM(96, 32, batch_first=True, bidirectional=True)
+    x = torch.from_numpy(rng.standard_normal((4, 33, 96)).astype(np.float32))
+    with torch.no_grad():
+        want = lstm(x)[0]
+        lstm_rel = {}
+        for name, on in (("cudnn", True), ("native", False)):
+            with torch.backends.cudnn.flags(enabled=on, allow_tf32=False):
+                got = copy.deepcopy(lstm).to(dev)(x.to(dev))[0].cpu()
+            lstm_rel[name] = float((got - want).norm() / want.norm())
+
+    def fmt(d):
+        return ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+
+    print(f"[7 train] one D/G step CUDA vs CPU (small config, draws fixed): "
+          f"losses rel {fmt(loss_rel)} (bound {TRAIN_LOSS_REL:g})", flush=True)
+    print(f"[7 train]   gradients rel-l2 CUDA vs CPU: {fmt(grad_rel)} "
+          f"(bounds {fmt(bound)})", flush=True)
+    print(f"[7 train]   CUDA without cuDNN vs CPU: {fmt(no_cudnn)} (bound "
+          f"{TRAIN_GRAD_REL:g}); CUDA with vs without cuDNN: "
+          f"{fmt(cudnn_spread)}; one BiLSTM's output vs the CPU: cuDNN "
+          f"{lstm_rel['cudnn']:.2e}, without cuDNN {lstm_rel['native']:.2e}",
+          flush=True)
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, grad_bound=bound,
+                no_cudnn=no_cudnn, cudnn_spread=cudnn_spread,
+                lstm_rel=lstm_rel)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write the measurements here")
@@ -925,8 +1376,9 @@ def main() -> int:
     b2 = phase_b2(chk)
     windows, engine_out = phase_engine(chk, cfg, card)
     phase_f32_vs_cpu(chk, cfg)
-    # the main path's launches: every window of phase 5 (graph replays
-    # counted as the launches they recorded)
+    windows["train"], train_out = phase_train(chk, root, card)
+    # the main path's launches: every window of phases 5 and 7 (graph
+    # replays counted as the launches they recorded)
     n_b1 = sum(c["b1"] for c in windows.values())
     n_b2 = sum(c["b2"] for c in windows.values())
 
@@ -946,13 +1398,15 @@ def main() -> int:
              plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
              bound_by=b2["bound_by"], library_ms=None,
              device_ms=b2["device_ms"],
-             launches_by_path={k: c["b2"] for k, c in windows.items()}),
+             launches_by_path={k: c["b2"] for k, c in windows.items()},
+             training_shapes=train_out["b2_shapes"]),
     ]
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "kernels": kernels, "b1": b1, "b2": b2,
              "engine": engine_out, "launches": windows,
+             "train": train_out,
              "failed": chk.failed}, indent=1))
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} checks failed: {chk.failed}",

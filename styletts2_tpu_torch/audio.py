@@ -1,14 +1,19 @@
-"""Host-side audio IO and preprocessing for the style path.
+"""Host-side audio IO and preprocessing for the style path and the
+training data.
 
 The port's own copy of the functions of styletts2_tpu/audio.py that
-`StyleTTS2.compute_style` needs: WAV reading, resampling, silence trimming
-and the spectral-gate denoiser. Pure numpy/scipy, per clip, not hot.
+`StyleTTS2.compute_style` and the training loader need: WAV reading and
+writing, header-only length probing, resampling, silence trimming and the
+spectral-gate denoiser. Pure numpy/scipy, per clip, not hot. FLAC input
+(styletts2_tpu/flac.py) is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import struct
+import wave as _wave
 from typing import Tuple
 
 import numpy as np
@@ -78,6 +83,47 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     if ch > 1:
         data = data.reshape(-1, ch)[:, 0]
     return data, sr
+
+
+def read_audio(path: str) -> Tuple[np.ndarray, int]:
+    """Read an audio file -> (float32 mono, sr). WAV only: a FLAC file
+    raises (its decoder is not ported yet)."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"fLaC":
+        raise NotImplementedError(f"{path}: FLAC input is not ported yet; "
+                                  "convert it to WAV")
+    return read_wav(path)
+
+
+def probe_duration_samples(path: str, target_sr: int) -> int:
+    """Sample count at target_sr from the WAV header only (no decode): feeds
+    the duration-binned sampler (reference get_length,
+    meldataset.py:181-183)."""
+    with open(path, "rb") as f:
+        data = f.read(1 << 16)  # headers live in the first chunk
+    if data[:4] == b"fLaC":
+        raise NotImplementedError(f"{path}: FLAC input is not ported yet; "
+                                  "convert it to WAV")
+    try:
+        tag, ch, sr, bits, off, _ = _parse_wav_header(data)
+    except ValueError:
+        with open(path, "rb") as f:
+            data = f.read()
+        tag, ch, sr, bits, off, _ = _parse_wav_header(data)
+    n = (os.path.getsize(path) - off) // (ch * (bits // 8))
+    return int(n * (target_sr / sr))
+
+
+def write_wav(path: str, wav: np.ndarray, sr: int = 24000) -> None:
+    """Write 16-bit PCM mono, clipped to [-1, 1]."""
+    wav = np.clip(np.asarray(wav, dtype=np.float32), -1.0, 1.0)
+    pcm = (wav * 32767.0).astype("<i2")
+    with _wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(pcm.tobytes())
 
 
 def resample(wav: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:

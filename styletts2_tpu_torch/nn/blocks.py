@@ -58,22 +58,25 @@ class AdainResBlk1d(nn.Module):
                  upsample: bool = False):
         super().__init__()
         self.upsample = upsample
-        self.conv1 = nn.Conv1d(dim_in, dim_out, 3, padding=1)
-        self.conv2 = nn.Conv1d(dim_out, dim_out, 3, padding=1)
+        self.conv1 = L.wn(nn.Conv1d(dim_in, dim_out, 3, padding=1))
+        self.conv2 = L.wn(nn.Conv1d(dim_out, dim_out, 3, padding=1))
         self.norm1 = L.AdaIN1d(style_dim, dim_in)
         self.norm2 = L.AdaIN1d(style_dim, dim_out)
-        self.conv1x1 = (nn.Conv1d(dim_in, dim_out, 1, bias=False)
+        self.conv1x1 = (L.wn(nn.Conv1d(dim_in, dim_out, 1, bias=False))
                         if dim_in != dim_out else None)
-        self.pool = (nn.ConvTranspose1d(dim_in, dim_in, 3, stride=2,
-                                        padding=1, output_padding=1,
-                                        groups=dim_in)
+        self.pool = (L.wn(nn.ConvTranspose1d(dim_in, dim_in, 3, stride=2,
+                                             padding=1, output_padding=1,
+                                             groups=dim_in))
                      if upsample else None)
 
     def forward(self, x: torch.Tensor, s: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
-                out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out_mask: Optional[torch.Tensor] = None,
+                dropout_p: float = 0.0,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, T, C); mask (B, T) at the input rate; out_mask (B, 2T) at
-        the output rate when upsampling."""
+        the output rate when upsampling. gen: train-mode dropout of
+        `dropout_p` after each AdaIN (None: eval)."""
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         sc = x
         if self.upsample:
@@ -87,11 +90,13 @@ class AdainResBlk1d(nn.Module):
         if self.upsample:
             h = L.conv_transpose1d(self.pool, h)
             cur_mask = out_mask
-            if cur_mask is not None:
-                # the pool conv's bias re-populates the padded rows
-                h = torch.where(cur_mask[..., None], h, zero)
+        h = L.dropout(h, dropout_p, gen)
+        if self.upsample and cur_mask is not None:
+            # the pool conv's bias re-populates the padded rows
+            h = torch.where(cur_mask[..., None], h, zero)
         h = L.conv1d(self.conv1, h)
         h = L.adain_1d_act(self.norm2, h, s, cur_mask, act="lrelu")
+        h = L.dropout(h, dropout_p, gen)
         h = L.conv1d(self.conv2, h)
         return (h + sc) / SQRT2
 
@@ -123,8 +128,9 @@ def affine_from_stats(mod: L.AdaIN1d, stats: torch.Tensor, s: torch.Tensor,
 
 class AdaINResBlock1(nn.Module):
     """HiFi-GAN AdaINResBlock1: per dilation d,
-    x += conv2(snake(adain2(conv1_d(snake(adain1(x)))))), with every
-    AdaIN+Snake+conv pair fused into one kernel-B1 call."""
+    x += conv2(snake(adain2(conv1_d(snake(adain1(x)))))). With a valid
+    prefix (inference) every AdaIN+Snake+conv pair is one kernel-B1 call;
+    without one (training) the plain differentiable formulation runs."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilation: Sequence[int] = (1, 3, 5), style_dim: int = 64):
@@ -134,8 +140,9 @@ class AdaINResBlock1(nn.Module):
         n = len(self.dilation)
 
         def conv(d):
-            return nn.Conv1d(channels, channels, kernel_size, dilation=d,
-                             padding=d * (kernel_size - 1) // 2)
+            return L.wn(nn.Conv1d(channels, channels, kernel_size,
+                                  dilation=d,
+                                  padding=d * (kernel_size - 1) // 2))
 
         self.convs1 = nn.ModuleList([conv(d) for d in self.dilation])
         self.convs2 = nn.ModuleList([conv(1) for _ in range(n)])
@@ -164,12 +171,20 @@ class AdaINResBlock1(nn.Module):
                 names.append(buf)
             setattr(self, name, names)
 
-    def forward(self, x: torch.Tensor, s: torch.Tensor, mask: torch.Tensor,
-                n_valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, s: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B, T, C) f32 or bf16; mask: (B, T) bool valid prefix;
-        n_valid: (B,) int32 prefix lengths. bf16 fuses the residual add
-        into conv2 and takes the next AdaIN's statistics from the kernel's
-        partial sums; f32 keeps two-pass statistics and a separate add."""
+        n_valid: (B,) int32 prefix lengths. Given both (inference), kernel
+        B1: bf16 fuses the residual add into conv2 and takes the next
+        AdaIN's statistics from the kernel's partial sums; f32 keeps
+        two-pass statistics and a separate add. Given neither (the
+        training synthesis, as JAX passes no n_valid there): the plain
+        formulation over the whole length, which autograd differentiates."""
+        if n_valid is None:
+            if mask is not None:
+                raise ValueError("AdaINResBlock1: a mask needs n_valid")
+            return self._plain(x, s)
         if not self.packed1:
             raise RuntimeError("AdaINResBlock1.prepack() was not called")
         x = x.contiguous()  # kernel B1 takes dense (B, T, C)
@@ -199,4 +214,16 @@ class AdaINResBlock1(nn.Module):
                 sc2, sh2 = adain_affine(self.adain2[i], xt, s, mask)
                 xt = VK.ada_snake_conv(xt, sc2, sh2, a2, w2, b2, 1, n_valid)
                 x = xt + x
+        return x
+
+    def _plain(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        """Unmasked AdaIN statistics and plain convs (styletts2_tpu/nn/
+        blocks.py adain_res_block1_apply with mask=None)."""
+        for i in range(len(self.dilation)):
+            xt = L.adain_1d_act(self.adain1[i], x, s, act="snake",
+                                alpha=self.alpha1[i].reshape(-1))
+            xt = L.conv1d(self.convs1[i], xt)
+            xt = L.adain_1d_act(self.adain2[i], xt, s, act="snake",
+                                alpha=self.alpha2[i].reshape(-1))
+            x = L.conv1d(self.convs2[i], xt) + x
         return x

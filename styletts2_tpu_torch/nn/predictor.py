@@ -4,7 +4,8 @@ duration head and the style-conditioned F0/energy heads.
 Counterpart of styletts2_tpu/nn/predictor.py (state-dict keys
 text_encoder.lstms.{0,2,4} BiLSTMs, text_encoder.lstms.{1,3,5}
 AdaLayerNorms, lstm.*, duration_proj.linear_layer.*, shared.*,
-F0.{0,1,2}.*, N.{0,1,2}.*, F0_proj.*, N_proj.*). Inference only.
+F0.{0,1,2}.*, N.{0,1,2}.*, F0_proj.*, N_proj.*). A `gen` argument turns
+on train-mode dropout drawn from that generator; None is eval.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ class ProsodyPredictor(nn.Module):
         self.N_proj = nn.Conv1d(d_hid // 2, 1, 1)
 
     def encode_duration(self, t_en: torch.Tensor, s: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
+                        mask: torch.Tensor, dropout_p: float = 0.2,
+                        gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """t_en (B, T, C), s (B, style), mask (B, T) -> (B, T, C + style)."""
         m = mask[..., None]
         zero = torch.zeros((), dtype=t_en.dtype, device=t_en.device)
@@ -60,28 +62,45 @@ class ProsodyPredictor(nn.Module):
         x = torch.where(m, torch.cat([t_en, s_seq], dim=-1), zero)
         for i, blk in enumerate(self.text_encoder.lstms):
             if i % 2 == 0:
-                x = L.lstm(blk, x, mask)
+                x = L.dropout(L.lstm(blk, x, mask), dropout_p, gen)
             else:
                 x = torch.cat([blk(x, s), s_seq], dim=-1)
                 x = torch.where(m, x, zero)
         return x
 
-    def duration_head(self, d: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def duration_head(self, d: torch.Tensor, mask: torch.Tensor,
+                      gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """d (B, T, C + style) -> duration logits (B, T, max_dur)."""
-        return L.linear(self.duration_proj.linear_layer,
-                        L.lstm(self.lstm, d, mask))
+        x = L.dropout(L.lstm(self.lstm, d, mask), 0.5, gen)
+        return L.linear(self.duration_proj.linear_layer, x)
+
+    def forward(self, t_en: torch.Tensor, s: torch.Tensor,
+                mask: torch.Tensor, alignment: torch.Tensor,
+                dropout_p: float = 0.2,
+                gen: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward (styletts2_tpu/nn/predictor.py forward):
+        alignment (B, T, F) -> (duration logits (B, T, max_dur), prosody
+        features en (B, F, C + style))."""
+        d = self.encode_duration(t_en, s, mask, dropout_p, gen)
+        duration = self.duration_head(d, mask, gen)
+        return duration, torch.matmul(alignment.transpose(1, 2), d)
 
     def f0n(self, en: torch.Tensor, s: torch.Tensor,
             mask: Optional[torch.Tensor] = None,
-            out_mask: Optional[torch.Tensor] = None
+            out_mask: Optional[torch.Tensor] = None,
+            dropout_p: float = 0.0,
+            gen: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """en (B, F, C + style) prosody features -> (F0, N), each (B, 2F).
-        mask at rate F, out_mask at rate 2F (F0Ntrain)."""
+        mask at rate F, out_mask at rate 2F (F0Ntrain; training passes no
+        masks and its dropout)."""
         x = L.lstm(self.shared, en, mask)
         outs = []
         for blocks, proj in ((self.F0, self.F0_proj), (self.N, self.N_proj)):
-            h = blocks[0](x, s, mask=mask)
-            h = blocks[1](h, s, mask=mask, out_mask=out_mask)
-            h = blocks[2](h, s, mask=out_mask)
+            h = blocks[0](x, s, mask=mask, dropout_p=dropout_p, gen=gen)
+            h = blocks[1](h, s, mask=mask, out_mask=out_mask,
+                          dropout_p=dropout_p, gen=gen)
+            h = blocks[2](h, s, mask=out_mask, dropout_p=dropout_p, gen=gen)
             outs.append(L.conv1d(proj, h)[..., 0])
         return outs[0], outs[1]

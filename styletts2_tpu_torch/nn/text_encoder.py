@@ -6,6 +6,8 @@ embedding.weight, cnn.{i}.0.*, cnn.{i}.1.{gamma,beta}, lstm.*).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
@@ -18,19 +20,20 @@ class TextEncoder(nn.Module):
         super().__init__()
         self.embedding = nn.Embedding(n_symbols, channels)
         self.cnn = nn.ModuleList([
-            nn.ModuleList([nn.Conv1d(channels, channels, kernel_size,
-                                     padding=(kernel_size - 1) // 2),
+            nn.ModuleList([L.wn(nn.Conv1d(channels, channels, kernel_size,
+                                          padding=(kernel_size - 1) // 2)),
                            L.LayerNorm(channels)])
             for _ in range(depth)])
         self.lstm = L.bilstm(channels, channels // 2)
 
-    def forward(self, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, mask: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """tokens (B, T) int64, mask (B, T) bool -> (B, T, C), zero at
-        padded positions."""
+        padded positions. gen: train-mode dropout (0.2) from it."""
         m = mask[..., None]
         zero = torch.zeros((), device=tokens.device)
         x = torch.where(m, self.embedding(tokens), zero)
         for conv, norm in self.cnn:
             x = L.leaky_relu(norm(L.conv1d(conv, x)), 0.2)
-            x = torch.where(m, x, zero)
+            x = torch.where(m, L.dropout(x, 0.2, gen), zero)
         return torch.where(m, L.lstm(self.lstm, x, mask), zero)

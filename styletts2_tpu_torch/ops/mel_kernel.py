@@ -7,14 +7,17 @@ the power spectrum kept on chip. Its grid splits the frequency axis into
 tiles of TF columns: the first pass writes one partial mel per tile to a
 scratch tensor, the second sums them in tile order and log-normalises.
 `log_mel` launches the kernel for CUDA tensors and runs `log_mel_plain`
-for CPU tensors; there is no other route.
+for CPU tensors; there is no other route. On CUDA it is differentiable
+(`_LogMel`, the counterpart of mel_pallas.py's custom VJP): the forward is
+the kernel, the backward is autograd over `log_mel_plain`, as JAX's
+`_fused_bwd` is `jax.vjp` of the plain formula; there is no backward
+kernel to write.
 The style path calls it once per `compute_style` (twice when a >= 1-s tail
-window remains).
+window remains); a training step calls it 8 times (`compute_mels` in the D
+and G steps, 6 in the MRSTFT loss).
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -33,7 +36,7 @@ def log_mel_plain(wave: torch.Tensor, sr: int = 24000, n_fft: int = 2048,
     return S.log_mel_normalize(mel, mean, std)
 
 
-@functools.lru_cache(maxsize=None)
+@S.cached_constant
 def _device_bases(sr: int, n_fft: int, win_length: int, n_mels: int,
                   device: torch.device):
     """Kernel operands, built once per (sr, n_fft, win, n_mels, device):
@@ -59,7 +62,8 @@ def log_mel(wave: torch.Tensor, sr: int = 24000, n_fft: int = 2048,
             std: float = S.LOG_MEL_STD) -> torch.Tensor:
     """(B, T) f32 waveforms -> (B, n_mels, n_frames) normalised log-mels.
 
-    CPU tensor: the plain version. CUDA tensor: kernel B2, or an error."""
+    CPU tensor: the plain version. CUDA tensor: kernel B2, or an error;
+    differentiable in `wave`."""
     if wave.dim() != 2 or wave.dtype != torch.float32:
         raise ValueError(f"log_mel takes (B, T) float32 waves, got "
                          f"{tuple(wave.shape)} {wave.dtype}")
@@ -71,11 +75,39 @@ def log_mel(wave: torch.Tensor, sr: int = 24000, n_fft: int = 2048,
     if n_fft % 32 != 0 or not 0 < n_mels <= 128:
         raise ValueError(f"log_mel kernel needs n_fft % 32 == 0 and "
                          f"n_mels <= 128, got {n_fft}, {n_mels}")
+    return _LogMel.apply(wave, (sr, n_fft, win_length, hop_length, n_mels,
+                                float(mean), float(std)))
+
+
+class _LogMel(torch.autograd.Function):
+    """Kernel B2 forward; backward = autograd of `log_mel_plain` at the
+    saved wave against the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, wave, args):
+        ctx.save_for_backward(wave)
+        ctx.args = args
+        return _launch(wave, *args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wave, = ctx.saved_tensors
+        with torch.enable_grad():
+            w = wave.detach().requires_grad_()
+            y = log_mel_plain(w, *ctx.args)
+            gw, = torch.autograd.grad(y, w, grad)
+        return gw, None
+
+
+def _launch(wave: torch.Tensor, sr: int, n_fft: int, win_length: int,
+            hop_length: int, n_mels: int, mean: float,
+            std: float) -> torch.Tensor:
+    """One launch of kernel B2 on a CUDA (B, T) f32 wave."""
     from styletts2_tpu_torch.ops import _build
 
     lib = _build.load("mel")
     b = wave.shape[0]
-    frames = S.frame_signal(wave, n_fft, hop_length).contiguous()
+    frames = S.frame_signal(wave.detach(), n_fft, hop_length).contiguous()
     n_frames = frames.shape[1]
     cos_p, sin_p, fb_p = _device_bases(sr, n_fft, win_length, n_mels,
                                        wave.device)
@@ -86,8 +118,7 @@ def log_mel(wave: torch.Tensor, sr: int = 24000, n_fft: int = 2048,
     stream = torch.cuda.current_stream(wave.device).cuda_stream
     err = lib.log_mel(frames.data_ptr(), cos_p.data_ptr(), sin_p.data_ptr(),
                       fb_p.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                      rows, n_fft, cos_p.shape[1], n_mels, float(mean),
-                      float(std), stream)
+                      rows, n_fft, cos_p.shape[1], n_mels, mean, std, stream)
     if err != 0:
         raise RuntimeError(f"log_mel kernel launch failed: CUDA error {err}")
     log_mel.launches += 1

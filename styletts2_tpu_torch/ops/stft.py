@@ -1,7 +1,7 @@
 """DSP in plain PyTorch: framing, DFT/mel bases, log-mel, interpolation.
 
 Counterpart of styletts2_tpu/ops/stft.py for the functions the inference
-slice needs. The mel front end reproduces torchaudio's MelSpectrogram
+and training slices need. The mel front end reproduces torchaudio's MelSpectrogram
 (n_fft 2048, win 1200, hop 300, power 2, htk mels, no norm) followed by
 the reference's log normalisation, as two true-f32 matmuls against
 windowed DFT bases. `preprocess_wave` routes to kernel B2
@@ -22,6 +22,20 @@ LOG_MEL_MEAN = -4.0
 LOG_MEL_STD = 4.0
 
 
+def cached_constant(fn):
+    """functools.lru_cache for tensor constants, each built outside
+    inference mode: one first built under torch.inference_mode() (the
+    engine's) would be an inference tensor, which autograd refuses to save
+    for a later training step's backward."""
+    @functools.lru_cache(maxsize=None)
+    @functools.wraps(fn)
+    def build(*args, **kwargs):
+        with torch.inference_mode(False):
+            return fn(*args, **kwargs)
+
+    return build
+
+
 def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
     """(B, T) -> (B, n_frames, n_fft) frames, reflect-padded by n_fft // 2
     on both sides (torch.stft center=True parity). Returns a view."""
@@ -39,7 +53,7 @@ def hann_window(win_length: int, n_fft: int) -> torch.Tensor:
     return F.pad(w, (left, n_fft - win_length - left))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_constant
 def dft_bases(n_fft: int, win_length: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(win*cos, win*-sin) bases of shape (n_fft, n_fft // 2 + 1), f32.
 
@@ -118,10 +132,38 @@ def log_mel_normalize(mel: torch.Tensor, mean: float = LOG_MEL_MEAN,
 
 def preprocess_wave(wave: torch.Tensor, **mel_kwargs) -> torch.Tensor:
     """(B, T) waveforms -> (B, n_mels, n_frames) normalised log-mels: kernel
-    B2 on CUDA tensors, its plain version on CPU tensors."""
+    B2 on CUDA tensors (differentiable: its backward is autograd over the
+    plain formula), its plain version on CPU tensors."""
     from styletts2_tpu_torch.ops.mel_kernel import log_mel
 
     return log_mel(wave, **mel_kwargs)
+
+
+def log_norm(x: torch.Tensor, mean: float = LOG_MEL_MEAN,
+             std: float = LOG_MEL_STD, dim: int = -2) -> torch.Tensor:
+    """Energy curve from normalised log-mels: log ||exp(x * std + mean)||_2
+    over the mel axis (reference utils.py:47-53)."""
+    return torch.log(torch.linalg.vector_norm(torch.exp(x * std + mean),
+                                              dim=dim))
+
+
+@cached_constant
+def dct_matrix(n_mfcc: int = 40, n_mels: int = 80) -> torch.Tensor:
+    """(n_mels, n_mfcc) orthonormal DCT-II basis, f32
+    (torchaudio.functional.create_dct(norm='ortho') parity)."""
+    n = np.arange(n_mels, dtype=np.float64)
+    k = np.arange(n_mfcc, dtype=np.float64)
+    dct = np.cos(np.pi / n_mels * (n[:, None] + 0.5) * k[None, :])
+    dct[:, 0] *= 1.0 / math.sqrt(2.0)
+    dct *= math.sqrt(2.0 / n_mels)
+    return torch.from_numpy(dct.astype(np.float32))
+
+
+def mfcc(mel_norm: torch.Tensor, n_mfcc: int = 40) -> torch.Tensor:
+    """(B, n_mels, T) normalised log-mel -> (B, n_mfcc, T): a plain DCT
+    matmul (reference ASR/layers.py:341-354)."""
+    d = dct_matrix(n_mfcc, mel_norm.shape[-2]).to(mel_norm.device)
+    return torch.matmul(mel_norm.transpose(-1, -2), d).transpose(-1, -2)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ at the default config.
     out = conv1d_same(z, w, dilation) + bias (+ residual), f32 accumulation
 
 `ada_snake_conv` launches the kernel for CUDA tensors and runs
-`ada_snake_conv_plain` for CPU tensors; there is no other route. bf16
+`ada_snake_conv_plain` for CPU tensors; there is no other route. It has no
+backward (nor has the TPU kernel): it is inference only, and raises when
+asked to build a graph, pointing to the training route (the block's plain
+formulation, taken when the caller passes no valid prefix). bf16
 runs its products on the tensor cores (wgmma), f32 on the CUDA cores in
 true f32. The weight is prepacked (k, C_in, C_out) in x's dtype
 (weights.py / the block's `prepack`) for both; the bf16 kernel reads it
@@ -127,7 +130,17 @@ def ada_snake_conv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     in x.dtype, and with out_stats also the (B, 2, C) f32 [sum, sum of
     squares] of the masked output.
 
-    CPU tensors: the plain version. CUDA tensors: kernel B1, or an error."""
+    CPU tensors: the plain version. CUDA tensors: kernel B1, or an error.
+    Inference only: raises if grad mode is on and any tensor argument
+    requires a gradient."""
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad
+            for v in (x, scale, shift, alpha, w, bias, residual)):
+        raise RuntimeError(
+            "ada_snake_conv is inference only (kernel B1 has no backward): "
+            "a differentiable call takes the plain training route, "
+            "AdaINResBlock1(x, s) with no mask and no n_valid (the "
+            "decoder's frame_mask=None), as the training step does")
     _check(x, scale, shift, alpha, w, bias, n_valid, residual)
     if x.device.type == "cpu":
         return ada_snake_conv_plain(x, scale, shift, alpha, w, bias,

@@ -3,11 +3,14 @@
 Counterpart of styletts2_tpu/convert.py for the port. A parameter tree is a
 nested dict of arrays keyed by the reference torch module paths — the
 output of styletts2_tpu.models.build_model after np.asarray, or the `net`
-of a native `.ckpt` (a pickle of numpy trees). Weight norm (weight_g,
-weight_v) is fused into a plain `weight` here, once, on the host; the
-flattened keys are then exactly the port's state-dict keys. After loading,
-every kernel-B1 conv weight is prepacked as the kernel takes it
-((k, C_in, C_out) in the decoder dtype).
+of a native `.ckpt` (a pickle of numpy trees). For inference, weight norm
+(weight_g, weight_v) is fused into a plain `weight` here, once, on the
+host; the flattened keys are then exactly the port's state-dict keys, and
+every kernel-B1 conv weight is prepacked as the kernel takes it ((k, C_in,
+C_out) in the decoder dtype). A training build keeps the pairs as
+parameters (AdamW on g and v is not AdamW on the fused weight):
+`split_weight_norm`, then `load_param_tree(..., fuse=False)`;
+`module_tree` writes a module back as a numpy tree in the JAX layout.
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ def fuse_weight_norm(tree):
     return {k: fuse_weight_norm(v) for k, v in tree.items()}
 
 
-def tree_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def tree_to_state_dict(tree: Mapping[str, Any],
+                       fuse: bool = True) -> Dict[str, torch.Tensor]:
     """Nested param tree -> flat {dotted key: f32 tensor}, weight norm
-    fused."""
+    fused unless fuse=False."""
     flat: Dict[str, torch.Tensor] = {}
 
     def rec(node, prefix):
@@ -50,15 +54,51 @@ def tree_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             flat[".".join(prefix)] = torch.from_numpy(
                 np.array(node, dtype=np.float32))
 
-    rec(fuse_weight_norm(tree), [])
+    rec(fuse_weight_norm(tree) if fuse else tree, [])
     return flat
 
 
+def nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{dotted key: leaf} -> nested tree (the reverse of flattening)."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def module_tree(module: nn.Module) -> Dict[str, Any]:
+    """A module's state dict as a nested numpy tree in the JAX layout
+    (the reverse of tree_to_state_dict(fuse=False))."""
+    return nest({k: v.detach().cpu().numpy().copy()
+                 for k, v in module.state_dict().items()})
+
+
+def split_weight_norm(root: nn.Module) -> None:
+    """Turn every conv marked by `layers.wn` into a (weight_g, weight_v)
+    pair with g = ||w|| (over all but dim 0) and v = w, so the fused
+    weight is unchanged. A module already split is left as it is."""
+    for m in root.modules():
+        if not getattr(m, "weight_norm", False) or "weight" not in m._parameters:
+            continue
+        w = m.weight.detach()
+        del m._parameters["weight"]
+        norm = torch.sqrt(torch.sum(w * w, dim=tuple(range(1, w.dim())),
+                                    keepdim=True))
+        m.weight_g = nn.Parameter(norm.clone())
+        m.weight_v = nn.Parameter(w.clone())
+
+
 def load_param_tree(engine_or_modules, tree: Mapping[str, Any],
-                    decoder_dtype: torch.dtype = torch.float32) -> None:
+                    decoder_dtype: torch.dtype = torch.float32,
+                    fuse: bool = True) -> None:
     """Load {module: tree} into the port's modules, strictly (every key and
     shape must match), then prepack the decoder's kernel-B1 weights in
-    `decoder_dtype`.
+    `decoder_dtype`. fuse=False: a training build (weight norm split, no
+    prepacking).
 
     engine_or_modules: an infer.StyleTTS2 (its `.modules`) or a mapping of
     module name -> nn.Module. Modules absent from `tree` are left as they
@@ -69,8 +109,9 @@ def load_param_tree(engine_or_modules, tree: Mapping[str, Any],
     for name, module in modules.items():
         if name not in tree:
             continue
-        module.load_state_dict(tree_to_state_dict(tree[name]), strict=True)
-        if hasattr(module, "prepack"):
+        module.load_state_dict(tree_to_state_dict(tree[name], fuse),
+                               strict=True)
+        if fuse and hasattr(module, "prepack"):
             module.prepack(decoder_dtype)
 
 
@@ -94,6 +135,9 @@ def init_random(modules: nn.Module, generator: torch.Generator) -> None:
                     - bound)
 
     for name, m in modules.named_modules():
+        if "weight_v" in m._parameters:
+            raise ValueError(f"init_random: {name} has its weight norm "
+                             "split; initialise before split_weight_norm")
         if name.endswith("duration_proj.linear_layer"):
             out_dim, in_dim = m.weight.shape
             uniform_(m.weight, (6.0 / (in_dim + out_dim)) ** 0.5)
@@ -107,7 +151,7 @@ def init_random(modules: nn.Module, generator: torch.Generator) -> None:
             uniform_(w, bound)
             if m.bias is not None:
                 uniform_(m.bias, bound)
-        elif isinstance(m, nn.LSTM):
+        elif isinstance(m, (nn.LSTM, nn.LSTMCell)):
             for p in m.parameters():
                 uniform_(p, 1.0 / m.hidden_size ** 0.5)
         elif isinstance(m, nn.Embedding):
