@@ -47,7 +47,22 @@ Phases, each printed on its own line:
      time), B2 forward and gradient at every training shape, one D/G step
      on CUDA against the CPU at a small config with the draws fixed, and
      the checkpoint through the inference engine;
-  8. the kernels line (JSON), the card line, and the result line.
+  8. the iSTFTNet and Vocos decoders at full width (config_example.yaml
+     with the decoder type changed and HiFi-GAN's upsampling keys removed,
+     so the type's documented defaults apply; bf16, seeded random
+     weights), each: warmup, compute_style and generate through a replayed
+     fused graph, the fused graph against the two-phase path, and
+     generate_batch on eight texts gated per row at twice this decoder's
+     phase2_spread, with B1 counted per window (48 launches per phase-2
+     evaluation for iSTFTNet, none for Vocos); for iSTFTNet, B1 against
+     its plain version at its stage shapes at frame bucket 256 (C 256 at
+     T 5120 and C 128 at the odd T 30721; f32 and bf16; valid prefix
+     before T and at T; with and without the residual and stats) and
+     every launch of one phase-2 call timed; the f32 CUDA engine against
+     the CPU (iSTFTNet gated with the CPU's source STFT shared); one
+     full-width D/G step on phase 7's batch (launches, losses, ms per
+     step, peak memory) and the small config's CUDA-vs-CPU step;
+  9. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
 `--b1-only` stops after phase 3; with `--package-from DIR` the package
@@ -58,6 +73,7 @@ B1 kernels are timed by the same code in one run.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import shutil
@@ -218,7 +234,9 @@ class Checks:
             print(f"  FAILED: {what}", flush=True)
 
 
-def b1_operands(c, t, k, dtype, gen, b=1, residual=False):
+def b1_operands(c, t, k, dtype, gen, b=1, residual=False, full=False):
+    """Random operands; row i's valid prefix ends 37 + 101 i rows before T,
+    or at T itself (full)."""
     import torch
 
     def rnd(*shape, sc=1.0):
@@ -227,7 +245,8 @@ def b1_operands(c, t, k, dtype, gen, b=1, residual=False):
     ops = dict(x=rnd(b, t, c).to(dtype), scale=rnd(b, c, sc=0.5) + 1.0,
                shift=rnd(b, c, sc=0.1), alpha=rnd(c).abs() + 0.5,
                w=rnd(k, c, c, sc=0.05).to(dtype), bias=rnd(c, sc=0.01),
-               n_valid=torch.tensor([t - 37 - 101 * i for i in range(b)],
+               n_valid=torch.tensor([t - (0 if full else 37 + 101 * i)
+                                     for i in range(b)],
                                     dtype=torch.int32, device="cuda"))
     ops["residual"] = rnd(b, t, c).to(dtype) if residual else None
     return ops
@@ -262,30 +281,49 @@ def tensor_core_sass(lib_path):
                f"{Path(lib_path).name} (cuobjdump -sass)")
 
 
-def phase_b1(chk: Checks, cfg, frame_bucket: int):
-    """Checks at every (C, k, d) of the config; then times every launch of
-    one bf16 phase-2 call at `frame_bucket`."""
-    import torch
-    from styletts2_tpu_torch.ops import vocoder_kernel as VK
-
-    dec = cfg.model_params.decoder
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def b1_stages(dec, frame_bucket: int):
+    """(C, T, [(k, dilations)]) of every generator stage whose
+    AdaINResBlock1 blocks run B1 at `frame_bucket` (asr frames): T = 2F
+    prod(rates[:i+1]), plus iSTFTNet's reflection-pad row at its last
+    stage; the noise_res block (k 7, or 11 at the last stage) first."""
+    if dec.type == "vocos":
+        return []
     rates, n_up = dec.upsample_rates, len(dec.upsample_rates)
     stages = []
     for i in range(n_up):
+        last = i + 1 == n_up
         c = dec.upsample_initial_channel // 2 ** (i + 1)
         t = 2 * frame_bucket * int(np.prod(rates[: i + 1]))
-        blocks = [(7 if i + 1 < n_up else 11, (1, 3, 5))]  # noise_res
+        t += int(last and dec.type == "istftnet")
+        blocks = [(11 if last else 7, (1, 3, 5))]
         blocks += [(k, tuple(ds)) for k, ds in
                    zip(dec.resblock_kernel_sizes, dec.resblock_dilation_sizes)]
         stages.append((c, t, blocks))
+    return stages
 
-    max_err = 0.0
-    n_checks = 0
 
-    def compare(c, t, k, d, dtype, residual, stats, tag="", b=1):
-        nonlocal max_err, n_checks
-        o = b1_operands(c, t, k, dtype, gen, b=b, residual=residual)
+def b1_per_eval(dec) -> int:
+    """B1 launches per phase-2 evaluation: two per dilation of every
+    AdaINResBlock1 (96 hifigan, 48 istftnet, 0 vocos at full width)."""
+    return sum(2 * len(dl) for _, _, blocks in b1_stages(dec, 1)
+               for _, dl in blocks)
+
+
+class B1Compare:
+    """Kernel B1 against its plain version on the same random operands,
+    within TOL (and STATS_TOL for the stats) of max(1, max |plain|)."""
+
+    def __init__(self, chk: Checks, gen):
+        self.chk, self.gen = chk, gen
+        self.max_err, self.n = 0.0, 0
+
+    def __call__(self, c, t, k, d, dtype, residual, stats, tag="", b=1,
+                 full=False):
+        import torch
+        from styletts2_tpu_torch.ops import vocoder_kernel as VK
+
+        o = b1_operands(c, t, k, dtype, self.gen, b=b, residual=residual,
+                        full=full)
         got = b1_call(VK.ada_snake_conv, o, d, stats)
         want = b1_call(VK.ada_snake_conv_plain, o, d, stats)
         torch.cuda.synchronize()
@@ -298,12 +336,23 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
         if stats:
             serr = (gs - ws).abs().max().item() / max(1.0, ws.abs().max().item())
             ok = ok and serr <= STATS_TOL[name]
-        max_err = max(max_err, err)
-        n_checks += 1
-        chk.check(ok, f"B1 C={c} T={t} k={k} d={d} {name} res={residual} "
-                      f"stats={stats}{tag}: err {err:.3g} vs max {scale:.3g}")
+        self.max_err = max(self.max_err, err)
+        self.n += 1
+        nv = "T" if full else "T-37"
+        self.chk.check(ok, f"B1 C={c} T={t} k={k} d={d} {name} res={residual}"
+                           f" stats={stats} n_valid={nv}{tag}: err {err:.3g} "
+                           f"vs max {scale:.3g}")
         return err, scale
 
+
+def phase_b1(chk: Checks, cfg, frame_bucket: int):
+    """Checks at every (C, k, d) of the config; then times every launch of
+    one bf16 phase-2 call at `frame_bucket`."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    stages = b1_stages(cfg.model_params.decoder, frame_bucket)
+    compare = B1Compare(chk, gen)
     t0 = time.perf_counter()
     for c, t, blocks in stages:
         ks = sorted({k for k, _ in blocks})
@@ -343,8 +392,8 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
         k = max(k for k, _ in blocks)
         compare(c, t, k, 5, torch.bfloat16, True, True, tag=" (B=8)", b=8)
         compare(c, t, k, 5, torch.float32, True, True, tag=" (B=4)", b=4)
-    print(f"[3 B1] {n_checks} checks in {time.perf_counter() - t0:.1f} s, "
-          f"max abs err {max_err:.4g}", flush=True)
+    print(f"[3 B1] {compare.n} checks in {time.perf_counter() - t0:.1f} s, "
+          f"max abs err {compare.max_err:.4g}", flush=True)
     from styletts2_tpu_torch.ops import _build
 
     counts, line = tensor_core_sass(_build.library_path("vocoder"))
@@ -352,9 +401,23 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
     if counts is not None:
         chk.check(counts["HGMMA"] + counts["HMMA"] > 0,
                   "B1 library has tensor-core instructions")
+    return dict(max_abs_err=compare.max_err,
+                **b1_times(stages, gen, "[3 B1 time]",
+                           f"one bf16 phase-2 call at frame bucket "
+                           f"{frame_bucket}"))
 
-    # every launch of one bf16 phase-2 call at this bucket: per dilation,
-    # conv1 (stats) and conv2 (residual + stats, no stats after the last)
+
+def b1_times(stages, gen, tag: str, what: str):
+    """Every B1 launch of one bf16 phase-2 call over `stages`, timed: per
+    dilation, conv1 (stats) and conv2 (residual + stats, no stats after
+    the last). ms: CUDA events around 10 eager wrapper calls (the
+    definition of earlier PRs; it includes the host's time to issue each
+    call); device ms: CUDA-graph replay of the same inputs (warm L2); cold
+    ms: replay cycling through input sets that together exceed twice the
+    L2, so inputs come from HBM as the bound assumes; plain ms: eager."""
+    import torch
+    from styletts2_tpu_torch.ops import vocoder_kernel as VK
+
     launches = {}
     for c, t, blocks in stages:
         for k, dl in blocks:
@@ -363,11 +426,6 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
                 for key in ((c, t, k, d, False, True),
                             (c, t, k, 1, True, not last)):
                     launches[key] = launches.get(key, 0) + 1
-    # ms: CUDA events around 10 eager wrapper calls (the definition of
-    # earlier PRs; it includes the host's time to issue each call); device
-    # ms: CUDA-graph replay of the same inputs (warm L2); cold ms: replay
-    # cycling through input sets that together exceed twice the L2, so
-    # inputs come from HBM as the bound assumes; plain ms: eager
     keys = ("ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "conv_ms")
     totals = dict.fromkeys(keys + ("ops_ms",), 0.0)
     totals["n"] = 0
@@ -405,6 +463,7 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
         ps["n"] += n
         for key in keys:
             ps[key] += n * row[key]
+
     def times(v):
         return (f"kernel {v['ms']:.3f} ms in eager calls, {v['device_ms']:.3f}"
                 f" ms on the device (warm L2), {v['cold_ms']:.3f} ms (cold "
@@ -413,12 +472,12 @@ def phase_b1(chk: Checks, cfg, frame_bucket: int):
                 f"{v['conv_ms']:.3f} ms on the device")
 
     for (c, t), ps in per_stage.items():
-        print(f"[3 B1 time] bf16 C={c} T={t}: {int(ps['n'])} launches, "
+        print(f"{tag} bf16 C={c} T={t}: {int(ps['n'])} launches, "
               f"{times(ps)}", flush=True)
     by = "operations" if totals["ops_ms"] >= totals["bound_ms"] / 2 else "bytes"
-    print(f"[3 B1 time] one bf16 phase-2 call at frame bucket {frame_bucket}"
-          f": {totals['n']} launches, {times(totals)} ({by})", flush=True)
-    return dict(max_abs_err=max_err, bound_by=by, detail=detail,
+    print(f"{tag} {what}: {totals['n']} launches, {times(totals)} ({by})",
+          flush=True)
+    return dict(bound_by=by, detail=detail, launches=totals["n"],
                 **{key: totals[key] for key in keys})
 
 
@@ -492,12 +551,14 @@ class Launches:
         return out
 
 
-def check_b1_counts(chk: Checks, c, what: str) -> None:
-    """B1's wrapper runs 96 times per eager phase-2 evaluation and per
-    capture; each replay launches the 96 it recorded."""
-    chk.check(c["b1_wrapper"] == 96 * (c["phase2_calls"] + c["captures"])
-              and c["b1"] == 96 * (c["phase2_calls"] + c["replays"])
-              and c["b1"] > 0, f"{what}: B1 launches {c}")
+def check_b1_counts(chk: Checks, c, what: str, per_eval: int) -> None:
+    """B1's wrapper runs `per_eval` times (b1_per_eval: 96 hifigan, 48
+    istftnet, 0 vocos) per eager phase-2 evaluation and per capture; each
+    replay launches the ones it recorded."""
+    chk.check(c["b1_wrapper"] == per_eval * (c["phase2_calls"]
+                                             + c["captures"])
+              and c["b1"] == per_eval * (c["phase2_calls"] + c["replays"])
+              and (c["b1"] > 0) == (per_eval > 0), f"{what}: B1 launches {c}")
 
 
 def timed(fn):
@@ -593,6 +654,14 @@ def spread_line(sp) -> str:
             f"{sp['decoder_fed_batch8_f0n']:.3g}")
 
 
+def style_clip(sr: int) -> np.ndarray:
+    """A seeded 5-s reference clip: a tremolo tone in noise."""
+    rng = np.random.default_rng(0)
+    tt = np.arange(sr * 5) / sr
+    return (0.3 * np.sin(2 * np.pi * 180 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+            + 0.05 * rng.standard_normal(len(tt))).astype(np.float32)
+
+
 def phase_engine(chk: Checks, cfg, card: str):
     """The full-width bf16 engine through its entry points: compute_style
     and generate on three texts (the short one through a replayed fused
@@ -608,11 +677,8 @@ def phase_engine(chk: Checks, cfg, card: str):
     print(f"[5 engine] init {time.perf_counter() - t0:.1f} s, decoder "
           f"{engine.dtype}, {sum(p.numel() for p in engine.modules.parameters())}"
           f" parameters", flush=True)
-    rng = np.random.default_rng(0)
     sr = engine.sr
-    tt = np.arange(sr * 5) / sr
-    clip = (0.3 * np.sin(2 * np.pi * 180 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
-            + 0.05 * rng.standard_normal(len(tt))).astype(np.float32)
+    clip = style_clip(sr)
     # warm-up (cuDNN plans, first launches, the fused graphs the texts
     # pick, the speaking-rate estimate) before the counted run
     style = {"style": engine.compute_style(clip), "speed": 1.0}
@@ -653,12 +719,13 @@ def phase_engine(chk: Checks, cfg, card: str):
     windows["generate"] = c = win.read()
     print(f"[5 engine] launches (compute_style + generate x3): {c}",
           flush=True)
-    check_b1_counts(chk, c, "generate")
+    per_eval = b1_per_eval(engine.cfg.model_params.decoder)
+    check_b1_counts(chk, c, "generate", per_eval)
     chk.check(c["replays"] >= 1, "the short text replayed a fused graph")
     chk.check(c["b2"] >= 1, "B2 launched on the main path")
-    chk.check(all(g.launches["ada_snake_conv"] == 96
+    chk.check(all(g.launches["ada_snake_conv"] == per_eval
                   for g in engine.graphs.values()),
-              "every fused graph recorded 96 B1 launches")
+              f"every fused graph recorded {per_eval} B1 launches")
 
     # n_merge=1: one chunk per sentence (the default merges the short
     # sentences of this text into one chunk)
@@ -678,7 +745,7 @@ def phase_engine(chk: Checks, cfg, card: str):
     return windows, dict(fused=fused, batch=batch, merge=merge)
 
 
-def phase_fused(chk: Checks, engine, style, card: str):
+def phase_fused(chk: Checks, engine, style, card: str, tag="[5 fused]"):
     """The short text through the fused graph against the two-phase path:
     graph replay vs the same engine's eager `_fused` (identical), the same
     total as the two-phase path from the same seed, five runs of each path
@@ -701,17 +768,17 @@ def phase_fused(chk: Checks, engine, style, card: str):
                          median_ms=med * 1e3,
                          inv_rtf=len(ref) / sr / med,
                          replays=engine.graph_replays - replays0)
-        print(f"[5 fused] short text, {name}: {len(ref)} samples, 5 runs "
+        print(f"{tag} short text, {name}: {len(ref)} samples, 5 runs "
               f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median "
               f"{med * 1e3:.1f} ms, 1/RTF {len(ref) / sr / med:.1f}, "
               f"{engine.graph_replays - replays0} graph replays | {card}",
               flush=True)
     engine.fused_enabled = True
     chk.check(out["fused graph"]["replays"] == 6,
-              "every fused run replayed a graph")
-    chk.check(out["two-phase"]["replays"] == 0, "fused_enabled=False")
+              f"{tag} every fused run replayed a graph")
+    chk.check(out["two-phase"]["replays"] == 0, f"{tag} fused_enabled=False")
     chk.check(out["fused graph"]["samples"] == out["two-phase"]["samples"],
-              "fused and two-phase totals equal")
+              f"{tag} fused and two-phase totals equal")
 
     tk = tokens_for_sentence(text, engine.cleaner)
     for (tb, fb), g in sorted(engine.graphs.items()):
@@ -731,8 +798,8 @@ def phase_fused(chk: Checks, engine, style, card: str):
                                  torch.from_numpy(noise).cuda(), n_frames=fb)
         same = (np.array_equal(pcm, want[0].cpu().numpy())
                 and np.array_equal(total, want[1].cpu().numpy()))
-        chk.check(same, f"graph ({tb}, {fb}) == eager _fused")
-        print(f"[5 fused] graph (token bucket {tb}, frame bucket {fb}): "
+        chk.check(same, f"{tag} graph ({tb}, {fb}) == eager _fused")
+        print(f"{tag} graph (token bucket {tb}, frame bucket {fb}): "
               f"replay == eager _fused {same} (total {int(total[0])}); "
               f"peak allocated while capturing "
               f"{g.peak_bytes / 2 ** 20:.1f} MiB, shared pool grew "
@@ -760,7 +827,8 @@ def phase_batch(chk: Checks, engine, style, card: str, windows):
                                                 stabilize=False))
             for _ in range(3)]
     windows["generate_batch"] = c = win.read()
-    check_b1_counts(chk, c, "generate_batch x3")
+    per_eval = b1_per_eval(engine.cfg.model_params.decoder)
+    check_b1_counts(chk, c, "generate_batch x3", per_eval)
     outs = runs[0][0]
     chk.check(all(np.array_equal(x, y) for r in runs[1:]
                   for x, y in zip(r[0], outs)), "generate_batch repeats")
@@ -793,7 +861,7 @@ def phase_batch(chk: Checks, engine, style, card: str, windows):
     served, wall = timed(lambda: list(engine.serve(batches, style,
                                                    stabilize=False)))
     windows["serve"] = c = win.read()
-    check_b1_counts(chk, c, "serve")
+    check_b1_counts(chk, c, "serve", per_eval)
     secs_all = n_batches * secs
     same = all(len(a) == len(b) and all(np.array_equal(x, y)
                                         for x, y in zip(a, b))
@@ -1153,7 +1221,8 @@ def phase_train(chk: Checks, root: Path, card: str):
     return counts, dict(steps=n_steps, evals=len(evals), wall_s=wall,
                         times=times, profile=prof_out, b2_shapes=shapes,
                         cuda_vs_cpu=parity,
-                        losses=[h["metrics"] for h in hist])
+                        losses=[h["metrics"] for h in hist]), (
+        cfg_path, batch, bin_id)
 
 
 def phase_train_b2(chk: Checks, trainer, card: str):
@@ -1218,11 +1287,15 @@ def phase_train_b2(chk: Checks, trainer, card: str):
     return out
 
 
-def phase_train_parity(chk: Checks, devices=("cuda", "cpu")):
+def phase_train_parity(chk: Checks, devices=("cuda", "cpu"), decoder=None,
+                       tag="[7 train]"):
     """One D/G step's losses and gradients on CUDA against the CPU at the
-    small config, same weights, draws fixed (coin soft, crops, source),
-    dropout off; the CUDA step once more with cuDNN off; and one BiLSTM's
-    output with and without cuDNN against the CPU. cuDNN's LSTM rounds
+    small config (its decoder block replaced by `decoder` when given),
+    same weights, draws fixed (coin soft, crops, the source's when the
+    generator has one), dropout off; the CUDA step once more with cuDNN
+    off; and (default decoder only) one BiLSTM's output with and without
+    cuDNN against the CPU. With another decoder the step with cuDNN is
+    reported and the one without it gated. cuDNN's LSTM rounds
     its f32 gates differently from the CPU (and from PyTorch's own CUDA
     kernels); the waveform losses' L1 terms and the TPRLS median selection
     turn such forward differences into larger gradient differences, most
@@ -1239,7 +1312,10 @@ def phase_train_parity(chk: Checks, devices=("cuda", "cpu")):
     from styletts2_tpu_torch.config import load_config
     from styletts2_tpu_torch.models import build_model
 
-    cfg = load_config(copy.deepcopy(TRAIN_TINY))
+    raw = copy.deepcopy(TRAIN_TINY)
+    if decoder is not None:
+        raw["model_params"]["decoder"] = dict(decoder)
+    cfg = load_config(raw)
     mods = build_model(cfg.model_params)
     W.init_random(mods, torch.Generator().manual_seed(3))
     W.split_weight_norm(mods)
@@ -1256,15 +1332,16 @@ def phase_train_parity(chk: Checks, devices=("cuda", "cpu")):
     starts = np.array([5, 2])
     rand_ini = rng.random((b, 9)).astype(np.float32)
     rand_ini[:, 0] = 0.0
-    noise = rng.standard_normal((b, 2 * crop * hop, 9)).astype(np.float32)
+    spf = mods["decoder"].generator.source_samples_per_frame
+    noise = rng.standard_normal((b, 2 * crop * spf, 9)).astype(np.float32)
 
     def step(dev, cudnn=True):
         m = copy.deepcopy(mods).to(dev)
         batch = TT.Batch.from_numpy(nb, dev)
+        source = ((torch.tensor(rand_ini, device=dev),
+                   torch.tensor(noise, device=dev)) if spf else None)
         draws = TT.Draws(coin=True, starts=torch.tensor(starts, device=dev),
-                         source=(torch.tensor(rand_ini, device=dev),
-                                 torch.tensor(noise, device=dev)),
-                         dropout=False)
+                         source=source, dropout=False)
         d_fn, g_fn = TT.make_grad_fns(cfg, crop)
         # flags() sets every cuDNN flag it is given and defaults TF32 on
         with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
@@ -1284,39 +1361,339 @@ def phase_train_parity(chk: Checks, devices=("cuda", "cpu")):
     loss_rel = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
     grad_rel, no_cudnn, cudnn_spread = rel(gc, gp), rel(gn, gp), rel(gc, gn)
     bound = {k: TRAIN_GRAD_BOUND.get(k, TRAIN_GRAD_REL) for k in gp}
+    what = f"{cfg.model_params.decoder.type} train step CUDA"
     chk.check(max(loss_rel.values()) < TRAIN_LOSS_REL,
-              f"train step CUDA vs CPU losses rel {loss_rel}")
+              f"{what} vs CPU losses rel {loss_rel}")
     chk.check(max(no_cudnn.values()) < TRAIN_GRAD_REL,
-              f"train step CUDA without cuDNN vs CPU, gradients rel-l2 "
-              f"{no_cudnn}")
-    chk.check(all(grad_rel[k] < bound[k] for k in gp),
-              f"train step CUDA vs CPU gradients rel-l2 {grad_rel}")
-
-    lstm = torch.nn.LSTM(96, 32, batch_first=True, bidirectional=True)
-    x = torch.from_numpy(rng.standard_normal((4, 33, 96)).astype(np.float32))
-    with torch.no_grad():
-        want = lstm(x)[0]
-        lstm_rel = {}
-        for name, on in (("cudnn", True), ("native", False)):
-            with torch.backends.cudnn.flags(enabled=on, allow_tf32=False):
-                got = copy.deepcopy(lstm).to(dev)(x.to(dev))[0].cpu()
-            lstm_rel[name] = float((got - want).norm() / want.norm())
+              f"{what} without cuDNN vs CPU, gradients rel-l2 {no_cudnn}")
+    if decoder is None:
+        chk.check(all(grad_rel[k] < bound[k] for k in gp),
+                  f"{what} vs CPU gradients rel-l2 {grad_rel}")
 
     def fmt(d):
         return ", ".join(f"{k} {v:.2e}" for k, v in d.items())
 
-    print(f"[7 train] one D/G step CUDA vs CPU (small config, draws fixed): "
-          f"losses rel {fmt(loss_rel)} (bound {TRAIN_LOSS_REL:g})", flush=True)
-    print(f"[7 train]   gradients rel-l2 CUDA vs CPU: {fmt(grad_rel)} "
-          f"(bounds {fmt(bound)})", flush=True)
-    print(f"[7 train]   CUDA without cuDNN vs CPU: {fmt(no_cudnn)} (bound "
+    lstm_rel, lstm_line = {}, ""
+    if decoder is None:
+        lstm = torch.nn.LSTM(96, 32, batch_first=True, bidirectional=True)
+        x = torch.from_numpy(rng.standard_normal((4, 33, 96)).astype(
+            np.float32))
+        with torch.no_grad():
+            want = lstm(x)[0]
+            for name, on in (("cudnn", True), ("native", False)):
+                with torch.backends.cudnn.flags(enabled=on, allow_tf32=False):
+                    got = copy.deepcopy(lstm).to(dev)(x.to(dev))[0].cpu()
+                lstm_rel[name] = float((got - want).norm() / want.norm())
+        lstm_line = (f"; one BiLSTM's output vs the CPU: cuDNN "
+                     f"{lstm_rel['cudnn']:.2e}, without cuDNN "
+                     f"{lstm_rel['native']:.2e}")
+
+    print(f"{tag} one D/G step CUDA vs CPU (small {cfg.model_params.decoder.type}"
+          f" config, draws fixed): losses rel {fmt(loss_rel)} (bound "
+          f"{TRAIN_LOSS_REL:g})", flush=True)
+    print(f"{tag}   gradients rel-l2 CUDA vs CPU: {fmt(grad_rel)} "
+          + (f"(bounds {fmt(bound)})" if decoder is None else
+             "(reported: the gate is the step without cuDNN)"), flush=True)
+    print(f"{tag}   CUDA without cuDNN vs CPU: {fmt(no_cudnn)} (bound "
           f"{TRAIN_GRAD_REL:g}); CUDA with vs without cuDNN: "
-          f"{fmt(cudnn_spread)}; one BiLSTM's output vs the CPU: cuDNN "
-          f"{lstm_rel['cudnn']:.2e}, without cuDNN {lstm_rel['native']:.2e}",
-          flush=True)
+          f"{fmt(cudnn_spread)}{lstm_line}", flush=True)
     return dict(loss_rel=loss_rel, grad_rel=grad_rel, grad_bound=bound,
                 no_cudnn=no_cudnn, cudnn_spread=cudnn_spread,
                 lstm_rel=lstm_rel)
+
+
+# phase 8: the other decoder types. The small decoder of each type for the
+# CUDA-vs-CPU step, as tests/test_torch_istftnet.py and test_torch_vocos.py
+# build them (prod(rates) * iSTFT hop, and Vocos's iSTFT hop, equal the
+# small config's mel hop of 60)
+DECODER_TYPES = ("istftnet", "vocos")
+TINY_DECODERS = {
+    "istftnet": {"type": "istftnet", "upsample_initial_channel": 512,
+                 "upsample_rates": [2, 6], "upsample_kernel_sizes": [4, 12],
+                 "resblock_kernel_sizes": [3],
+                 "resblock_dilation_sizes": [[1]],
+                 "gen_istft_n_fft": 20, "gen_istft_hop_size": 5},
+    "vocos": {"type": "vocos", "intermediate_dim": 128, "num_layers": 2,
+              "gen_istft_n_fft": 240, "gen_istft_hop_size": 60},
+}
+
+
+def phase_decoder(chk: Checks, root: Path, card: str, dec_type: str,
+                  workload, windows):
+    """One decoder type at full width (config_example.yaml's widths, bf16
+    decoder, seeded random weights): warmup; compute_style and generate on
+    the short text through a replayed fused graph (a counted window);
+    phase_fused's fused-graph vs two-phase comparison; generate_batch on
+    the eight texts, each row gated at twice what one phase-2 call moves
+    at another batch or bucket for this decoder (phase2_spread); for
+    iSTFTNet, B1 against its plain version at its stages' shapes and every
+    launch of one phase-2 call timed; the f32 CUDA engine against the f32
+    CPU engine; one full-width D/G step on phase 7's batch and the small
+    config's CUDA-vs-CPU step. Adds its windows to `windows`."""
+    import torch
+    import yaml
+
+    from styletts2_tpu_torch.config import load_config, with_decoder_type
+    from styletts2_tpu_torch.infer import StyleTTS2
+
+    tag = f"[8 {dec_type}]"
+    cfg = load_config(with_decoder_type(yaml.safe_load(
+        (root / "configs" / "config_example.yaml").read_text()), dec_type))
+    dec = cfg.model_params.decoder
+    per_eval = b1_per_eval(dec)
+    out = {}
+    t0 = time.perf_counter()
+    engine = StyleTTS2(cfg, seed=0)
+    gen_params = sum(p.numel() for p in
+                     engine.modules["decoder"].generator.parameters())
+    print(f"{tag} init {time.perf_counter() - t0:.1f} s, {dec}, decoder "
+          f"{engine.dtype}, generator {gen_params} parameters, {per_eval} B1 "
+          f"launches per phase-2 evaluation", flush=True)
+    clip = style_clip(engine.sr)
+    style = {"style": engine.compute_style(clip), "speed": 1.0}
+    _, wall = timed(lambda: engine.warmup(token_buckets=(64,),
+                                          frame_buckets=(904,)))
+    print(f"{tag} warmup (token bucket 64, frame bucket 904): {wall:.1f} s, "
+          f"fused graphs at {sorted(engine.graphs)}", flush=True)
+    chk.check(len(engine.graphs) >= 1, f"{tag} warmup captured graphs")
+    for _ in range(2):
+        engine.generate(TEXTS["short"], style)
+    torch.cuda.synchronize()
+
+    win = Launches(engine)
+    ref_s = engine.compute_style(clip)
+    style = {"style": ref_s, "speed": 1.0}
+    wav, wall = timed(lambda: engine.generate(TEXTS["short"], style))
+    c = win.read()
+    windows[f"{dec_type} generate"] = c
+    secs = len(wav) / engine.sr
+    audible = float(np.abs(wav[4000:-4000]).max()) if len(wav) > 8000 else 0.0
+    chk.check(bool(np.isfinite(wav).all()) and len(wav) > 8000
+              and audible > 0 and np.abs(wav).max() <= 1.0
+              and np.abs(wav[:4000]).max() == 0, f"{tag} generate short")
+    check_b1_counts(chk, c, f"{tag} generate", per_eval)
+    chk.check(c["replays"] >= 1 and c["b2"] >= 1,
+              f"{tag} a fused graph replayed, B2 launched: {c}")
+    chk.check(all(g.launches["ada_snake_conv"] == per_eval
+                  for g in engine.graphs.values()),
+              f"{tag} every fused graph recorded {per_eval} B1 launches")
+    print(f"{tag} compute_style + generate short: {len(wav)} samples "
+          f"({secs:.2f} s audio), peak {audible:.3f}, wall {wall * 1e3:.1f} "
+          f"ms, 1/RTF {secs / wall:.1f}; launches {c} | {card}", flush=True)
+    out["fused"] = phase_fused(chk, engine, style, card, tag)
+
+    engine.duration_scale = DURATION_SCALE
+    texts = BATCH_TEXTS
+    engine.generate_batch(texts, style, stabilize=False)  # warm-up
+    spread = phase2_spread(engine, texts[0], style)
+    bound = 2.0 * max(spread["batch8"], spread["next_bucket"])
+    win = Launches(engine)
+    outs, wall = timed(lambda: engine.generate_batch(texts, style,
+                                                     stabilize=False))
+    c = win.read()
+    windows[f"{dec_type} generate_batch"] = c
+    check_b1_counts(chk, c, f"{tag} generate_batch", per_eval)
+    rel = []
+    for text, got in zip(texts, outs):
+        want = engine.generate(text, style, stabilize=False)
+        ok = got.shape == want.shape and np.isfinite(got).all()
+        rel.append(rel_l2(got, want) if ok else 1.0)
+    chk.check(max(rel) <= bound, f"{tag} bf16 generate_batch vs generate "
+              f"rel-l2 {rel} (bound {bound:.3g})")
+    secs = sum(len(w) for w in outs) / engine.sr
+    print(f"{tag} generate_batch {len(texts)} texts: {secs:.2f} s audio in "
+          f"{wall * 1e3:.1f} ms (1/RTF {secs / wall:.1f}), "
+          f"{c['phase2_calls']} phase-2 calls; each text vs its own "
+          f"generate rel-l2 {', '.join(f'{r:.3g}' for r in rel)} (bound "
+          f"{bound:.3g} = twice the larger spread); {spread_line(spread)} "
+          f"| {card}", flush=True)
+    engine.duration_scale = None
+    out["batch"] = dict(rel_l2=rel, bound=bound, spread=spread,
+                        inv_rtf=secs / wall)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if dec_type == "istftnet":
+        out["b1"] = phase_b1_decoder(chk, cfg, 256, tag)
+    out["f32"] = phase_decoder_f32(chk, cfg, tag)
+    out["train"] = phase_decoder_train(chk, dec_type, workload, tag, card)
+    windows[f"{dec_type} train"] = out["train"]["launches_all"]
+    out["train_parity"] = phase_train_parity(
+        chk, decoder=TINY_DECODERS[dec_type], tag=tag)
+    return out
+
+
+def phase_b1_decoder(chk: Checks, cfg, frame_bucket: int, tag: str):
+    """B1 against its plain version at every (C, T, k, d) of the decoder's
+    stages at `frame_bucket` (iSTFTNet: C 256 at T = 20F, C 128 at the odd
+    T = 120F + 1), f32 and bf16, each with its valid prefix ending before
+    T and at T itself, with and without the residual and stats epilogues;
+    then every launch of one bf16 phase-2 call timed (b1_times)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    stages = b1_stages(cfg.model_params.decoder, frame_bucket)
+    compare = B1Compare(chk, gen)
+    t0 = time.perf_counter()
+    for c, t, blocks in stages:
+        for k in sorted({k for k, _ in blocks}):
+            for d in sorted({d for _, dl in blocks for d in dl}):
+                for dtype, res, st, full in (
+                        (torch.float32, False, False, False),
+                        (torch.bfloat16, True, True, False),
+                        (torch.float32, True, True, True),
+                        (torch.bfloat16, False, True, True)):
+                    compare(c, t, k, d, dtype, res, st, tag=f" {tag}",
+                            full=full)
+    print(f"{tag} B1 at {[(c, t) for c, t, _ in stages]}: {compare.n} checks "
+          f"in {time.perf_counter() - t0:.1f} s, max abs err "
+          f"{compare.max_err:.4g}", flush=True)
+    return dict(max_abs_err=compare.max_err, checks=compare.n,
+                **b1_times(stages, gen, f"{tag} B1 time",
+                           f"one bf16 phase-2 call at frame bucket "
+                           f"{frame_bucket}"))
+
+
+def phase_decoder_f32(chk: Checks, cfg, tag: str):
+    """The f32 engine on CUDA against the same engine on the CPU, one chunk
+    (phase 6's first comparison). iSTFTNet also runs with the CPU run's
+    source STFT fed to the CUDA run (both two-phase): the source's phase
+    is branch-cut ambiguous at quiet bins and near +-pi, where the two
+    devices' f32 sine and DFT roundings can take either sign, so the
+    gated comparison shares it and the unshared one is reported."""
+    import copy
+
+    import torch
+    from styletts2_tpu_torch.infer import StyleTTS2
+    from styletts2_tpu_torch.nn.istftnet import ISTFTNetGenerator
+
+    text = "Hello there"
+    s = np.random.default_rng(3).standard_normal((1, 128)).astype(
+        np.float32) * 0.3
+    istft = cfg.model_params.decoder.type == "istftnet"
+    features = ISTFTNetGenerator.source_features
+    recorded = []
+    out = {}
+    for dev in ("cpu", "cuda"):
+        engine = StyleTTS2(copy.deepcopy(cfg), seed=3,
+                           decoder_dtype="float32", device=dev)
+        n_tok = len(engine.cleaner(text)) + 2
+        engine.fixed_duration = cfg.tpu.frame_buckets[0] // n_tok
+        t0 = time.perf_counter()
+        out[dev] = engine.generate(text, {"style": s}, stabilize=False)
+        if istft:
+            engine.fused_enabled = False
+
+            def shared(self, f0, source=None, dev=dev):
+                if dev == "cpu":
+                    recorded.append(features(self, f0, source))
+                    return recorded[-1]
+                return recorded[0].to(f0.device)
+
+            ISTFTNetGenerator.source_features = shared
+            try:
+                out[dev + " shared"] = engine.generate(text, {"style": s},
+                                                       stabilize=False)
+            finally:
+                ISTFTNetGenerator.source_features = features
+        print(f"{tag} f32 {dev}: {len(out[dev])} samples in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del engine
+    rel = rel_l2(out["cuda"], out["cpu"])
+    res = dict(rel_l2=rel)
+    if istft:
+        res["rel_l2_shared_source"] = shared_rel = rel_l2(out["cuda shared"],
+                                                          out["cpu shared"])
+        gated = shared_rel
+        line = (f"with the CPU's source STFT shared {shared_rel:.3g} (gated), "
+                f"unshared {rel:.3g}")
+    else:
+        gated, line = rel, f"{rel:.3g}"
+    chk.check(out["cuda"].shape == out["cpu"].shape and gated < F32_CPU_BOUND
+              and np.abs(out["cpu"]).max() > 0,
+              f"{tag} f32 CUDA vs CPU rel-l2 {res}")
+    print(f"{tag} f32 CUDA vs CPU engine, frame bucket "
+          f"{cfg.tpu.frame_buckets[0]}: generate rel-l2 {line} (bound "
+          f"{F32_CPU_BOUND:g})", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_decoder_train(chk: Checks, dec_type: str, workload, tag: str,
+                        card: str):
+    """One full-width D/G step of this decoder type on phase 7's batch
+    (its config with the decoder type changed: batch 5, its bin's crop,
+    f32, TF32 off), seeded random weights: the launches of one step (8 B2,
+    no B1), finite losses, every trained module moved; then runs of
+    STEPS_TIMED steps synchronised at their ends (ms per step) and the
+    peak memory allocated."""
+    import torch
+    import yaml
+
+    from styletts2_tpu_torch import train as TT
+    from styletts2_tpu_torch import weights as W
+    from styletts2_tpu_torch.config import load_config, with_decoder_type
+    from styletts2_tpu_torch.data.loader import bin_crop_frames
+    from styletts2_tpu_torch.models import build_model
+    from styletts2_tpu_torch.ops import mel_kernel as MK
+    from styletts2_tpu_torch.ops import vocoder_kernel as VK
+    from styletts2_tpu_torch.optim import MultiOptimizer
+
+    cfg_path, batch, bin_id = workload
+    cfg = load_config(with_decoder_type(yaml.safe_load(cfg_path.read_text()),
+                                        dec_type))
+    mods = build_model(cfg.model_params)
+    W.init_random(mods, torch.Generator().manual_seed(0))
+    W.split_weight_norm(mods)
+    mods.to("cuda").train()
+    mods["pitch_extractor"].eval().requires_grad_(False)
+    step = TT.make_train_step(cfg, MultiOptimizer(mods), crop_frames=
+                              bin_crop_frames(bin_id, cfg.max_len))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    before = {k: [p.detach().clone() for p in mods[k].parameters()]
+              for k in TT.GEN_MODULES + TT.DISC_MODULES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MK.log_mel.launches = VK.ada_snake_conv.launches = 0
+    metrics, first = timed(lambda: step(mods, batch, gen))
+    counts = dict(b1=VK.ada_snake_conv.launches, b2=MK.log_mel.launches)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    moved = {k: any(not torch.equal(a, p) for a, p in
+                    zip(before[k], mods[k].parameters())) for k in before}
+    del before
+    chk.check(counts == dict(b1=0, b2=B2_PER_STEP),
+              f"{tag} one step's launches {counts}")
+    chk.check(all(np.isfinite(v) for v in metrics.values()),
+              f"{tag} train losses finite {metrics}")
+    chk.check(all(moved.values()), f"{tag} every trained module moved "
+              f"{moved}")
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(STEPS_TIMED):
+            step(mods, batch, gen)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3 / STEPS_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = 1 + 2 * STEPS_TIMED
+    launches_all = dict(b1=VK.ada_snake_conv.launches,
+                        b2=MK.log_mel.launches)
+    chk.check(launches_all == dict(b1=0, b2=B2_PER_STEP * n_steps),
+              f"{tag} {n_steps} steps' launches {launches_all}")
+    print(f"{tag} full-width D/G step (batch {batch.waves.shape[0]}, bin "
+          f"{bin_id}, f32): first {first * 1e3:.1f} ms, then runs of "
+          f"{STEPS_TIMED}: {runs[0]:.1f}, {runs[1]:.1f} ms per step; peak "
+          f"allocated {peak:.2f} GiB; one step's launches {counts}; losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+          + f" | {card}", flush=True)
+    del mods, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_ms=float(np.median(runs)), runs_ms=runs,
+                first_step_ms=first * 1e3, peak_gib=peak, launches=counts,
+                launches_all=launches_all, losses=metrics)
 
 
 def main() -> int:
@@ -1376,8 +1753,14 @@ def main() -> int:
     b2 = phase_b2(chk)
     windows, engine_out = phase_engine(chk, cfg, card)
     phase_f32_vs_cpu(chk, cfg)
-    windows["train"], train_out = phase_train(chk, root, card)
-    # the main path's launches: every window of phases 5 and 7 (graph
+    windows["train"], train_out, workload = phase_train(chk, root, card)
+    gc.collect()  # phase 7's trainer
+    torch.cuda.empty_cache()
+    decoders = {}
+    for dec_type in DECODER_TYPES:
+        decoders[dec_type] = phase_decoder(chk, root, card, dec_type,
+                                           workload, windows)
+    # the main path's launches: every window of phases 5, 7 and 8 (graph
     # replays counted as the launches they recorded)
     n_b1 = sum(c["b1"] for c in windows.values())
     n_b2 = sum(c["b2"] for c in windows.values())
@@ -1390,7 +1773,9 @@ def main() -> int:
              plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
              bound_by=b1["bound_by"], library_ms=None,
              device_ms=b1["device_ms"], device_cold_l2_ms=b1["cold_ms"],
-             launches_by_path={k: c["b1"] for k, c in windows.items()}),
+             launches_by_path={k: c["b1"] for k, c in windows.items()},
+             istftnet_phase2={k: v for k, v in decoders["istftnet"]["b1"]
+                              .items() if k != "detail"}),
         dict(name="fused_log_mel", route="cuda",
              source="styletts2_tpu_torch/csrc/mel.cu",
              replaces="styletts2_tpu/ops/mel_pallas.py:82",
@@ -1406,7 +1791,7 @@ def main() -> int:
         Path(args.json).write_text(json.dumps(
             {"card": card, "kernels": kernels, "b1": b1, "b2": b2,
              "engine": engine_out, "launches": windows,
-             "train": train_out,
+             "train": train_out, "decoders": decoders,
              "failed": chk.failed}, indent=1))
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} checks failed: {chk.failed}",

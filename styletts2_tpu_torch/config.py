@@ -12,6 +12,7 @@ and extended with TPU-specific knobs (mesh shape, dtype policy, bucketing).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -286,6 +287,21 @@ _DECODER_TYPE_DEFAULTS = {
                  "gen_istft_n_fft": 20, "gen_istft_hop_size": 5},
     "vocos": {"gen_istft_n_fft": 1200, "gen_istft_hop_size": 300},
 }
+
+
+def with_decoder_type(raw: Dict[str, Any], dec_type: str) -> Dict[str, Any]:
+    """A copy of a raw config dict whose decoder block has type `dec_type`
+    and none of HiFi-GAN's upsampling keys (upsample_rates,
+    upsample_kernel_sizes), so that load_config applies the type's
+    defaults below: configs/config_example.yaml sets those keys for
+    HiFi-GAN, and an iSTFTNet would otherwise keep rates [10, 5, 3, 2]."""
+    raw = copy.deepcopy(raw)
+    dec = raw.setdefault("model_params", {}).setdefault("decoder", {})
+    dec["type"] = dec_type
+    if dec_type != "hifigan":
+        for key in ("upsample_rates", "upsample_kernel_sizes"):
+            dec.pop(key, None)
+    return raw
 
 
 def _apply_decoder_type_defaults(cfg: Config, raw: Dict[str, Any]) -> None:

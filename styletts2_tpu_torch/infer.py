@@ -26,12 +26,14 @@ Execution follows the JAX engine:
   F0/N, decoder, int16 PCM) batched per frame bucket in groups of exactly
   the batch buckets, after splitting pieces that overflow the largest
   frame bucket at token boundaries. Both phases run eagerly.
-The style mel runs through kernel B2 and every generator conv pair
-through kernel B1 on CUDA, in eager calls and inside the captured graphs.
+The decoder is the config's type: hifigan, istftnet or vocos (outputs
+are trimmed at total * 2 * hop samples whichever it is). The style mel
+runs through kernel B2, and every AdaINResBlock1 conv pair of the
+HiFi-GAN and iSTFTNet generators through kernel B1 on CUDA, in eager
+calls and inside the captured graphs; Vocos runs no B1.
 
 Not ported yet: background ("async") graph capture, CUDA graphs for the
-batched two-phase calls, multi-GPU (`mesh`, `seq_parallel`), the istftnet
-and vocos decoders.
+batched two-phase calls, multi-GPU (`mesh`, `seq_parallel`).
 """
 
 from __future__ import annotations

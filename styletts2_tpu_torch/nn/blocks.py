@@ -1,6 +1,7 @@
 """Residual blocks: ResBlk2d (style encoder), AdainResBlk1d (decoder shell
-and F0/N heads) and AdaINResBlock1 (the HiFi-GAN generator's dilated
-Snake/AdaIN stack, every conv pair of which runs through kernel B1).
+and F0/N heads) and AdaINResBlock1 (the HiFi-GAN and iSTFTNet generators'
+dilated Snake/AdaIN stack, every conv pair of which runs through kernel
+B1).
 
 Counterpart of styletts2_tpu/nn/blocks.py. Channels-last activations;
 module attribute paths are the torch state-dict keys.

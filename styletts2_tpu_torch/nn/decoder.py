@@ -1,14 +1,17 @@
-"""Style-conditioned decoder shell + HiFi-GAN generator with its NSF source.
+"""Style-conditioned decoder shell + the generators: HiFi-GAN with its NSF
+source (here), iSTFTNet (nn/istftnet.py) and Vocos (nn/vocos.py).
 
-Counterpart of styletts2_tpu/nn/decoder.py for the hifigan decoder type.
-Inference (a frame mask given, no source draws: zero sine phase and zero
-noise, so the output is deterministic) runs the generator unfolded with
-per-stage valid-prefix masks, every AdaINResBlock1 conv pair through
-kernel B1 on CUDA (nn/blocks.py). Training (no frame mask, as JAX's step
-passes none) runs the plain differentiable formulation over the whole
-crop, with the sine source's random phase and noise passed in
-(`draw_source`). The JAX package's 128-lane time folding is a TPU layout
-and is not carried over. Channels-last activations.
+Counterpart of styletts2_tpu/nn/decoder.py: one shell dispatching on the
+config's decoder type. Inference (a frame mask given, no source draws:
+zero sine phase and zero noise, so the output is deterministic) runs the
+generator with per-stage valid-prefix masks, every AdaINResBlock1 conv
+pair of HiFi-GAN and iSTFTNet through kernel B1 on CUDA (nn/blocks.py).
+Training (no frame mask, as JAX's step passes none) runs the plain
+differentiable formulation over the whole crop, with the sine source's
+random phase and noise passed in (`draw_source`; each generator's
+`source_samples_per_frame` sizes them, 0 for Vocos, which has no
+source). The JAX package's 128-lane time folding is a TPU layout and is
+not carried over. Channels-last activations.
 """
 
 from __future__ import annotations
@@ -91,6 +94,8 @@ class HiFiGANGenerator(nn.Module):
         super().__init__()
         self.rates = list(cfg.upsample_rates)
         self.kernel_sizes = list(cfg.resblock_kernel_sizes)
+        # the sine source's samples per mel frame (its draws' length)
+        self.source_samples_per_frame = int(np.prod(self.rates))
         n_up = len(self.rates)
         c0 = cfg.upsample_initial_channel
         self.m_source = SourceModuleHnNSF()
@@ -191,14 +196,22 @@ def smooth_f0n(f0_curve: torch.Tensor, n: torch.Tensor, f_width: int,
 
 class Decoder(nn.Module):
     """Decoder shell: F0/N strided convs, an encode block and four decode
-    blocks (the last upsamples 2x), then the HiFi-GAN generator."""
+    blocks (the last upsamples 2x), then the generator of `cfg.type`:
+    hifigan, istftnet or vocos."""
 
     def __init__(self, cfg: DecoderConfig, dim_in: int = 512,
                  style_dim: int = 128):
         super().__init__()
-        if cfg.type != "hifigan":
-            raise ValueError(f"decoder type {cfg.type!r} is not ported yet "
-                             "(hifigan only)")
+        if cfg.type == "hifigan":
+            generator = HiFiGANGenerator(cfg, style_dim)
+        elif cfg.type == "istftnet":
+            from styletts2_tpu_torch.nn.istftnet import ISTFTNetGenerator
+            generator = ISTFTNetGenerator(cfg, style_dim)
+        elif cfg.type == "vocos":
+            from styletts2_tpu_torch.nn.vocos import VocosGenerator
+            generator = VocosGenerator(cfg, style_dim)
+        else:
+            raise ValueError(f"unknown decoder type {cfg.type!r}")
         self.encode = B.AdainResBlk1d(dim_in + 2, 1024, style_dim)
         self.decode = nn.ModuleList(
             [B.AdainResBlk1d(1024 + 2 + 64, 1024, style_dim) for _ in range(3)]
@@ -206,7 +219,7 @@ class Decoder(nn.Module):
         self.F0_conv = L.wn(nn.Conv1d(1, 1, 3, stride=2, padding=1))
         self.N_conv = L.wn(nn.Conv1d(1, 1, 3, stride=2, padding=1))
         self.asr_res = nn.ModuleList([L.wn(nn.Conv1d(dim_in, 64, 1))])
-        self.generator = HiFiGANGenerator(cfg, style_dim)
+        self.generator = generator
 
     def prepack(self, dtype: torch.dtype) -> None:
         """Pack every kernel-B1 weight in the decoder dtype."""
@@ -223,7 +236,7 @@ class Decoder(nn.Module):
         the decoder dtype; frame_mask (B, F) bool valid prefix at the asr
         rate, or None (training: every frame valid, no kernel B1); source:
         the sine source's draws (None: zero phase and noise). Returns wav
-        (B, 2F * prod(rates), 1)."""
+        (B, 2F * the generator's samples per mel frame, 1)."""
         mel_mask = None
         if frame_mask is not None:
             mel_mask = torch.repeat_interleave(frame_mask, 2, dim=1)

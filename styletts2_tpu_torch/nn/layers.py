@@ -115,9 +115,22 @@ def _ln_f32(x: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf - mean) * torch.rsqrt(var + eps)
 
 
-def plain_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Affine-free layer norm over the trailing dim: f32 math, x.dtype out."""
-    return _ln_f32(x, eps).to(x.dtype)
+def plain_layer_norm(x: torch.Tensor, eps: float = 1e-5,
+                     weight: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Layer norm over the trailing dim, affine when weight / bias are
+    given: f32 math, x.dtype out."""
+    y = _ln_f32(x, eps)
+    if weight is not None:
+        y = y * weight
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, jax.nn.gelu(approximate=False) parity."""
+    return F.gelu(x, approximate="none")
 
 
 def masked_stats(xf: torch.Tensor, m: Optional[torch.Tensor]
@@ -140,18 +153,24 @@ class AdaIN1d(nn.Module):
         self.fc = nn.Linear(style_dim, num_features * 2)
 
 
-def adain_1d_act(mod: AdaIN1d, x: torch.Tensor, s: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None, act: str = "none",
-                 alpha: Optional[torch.Tensor] = None,
-                 slope: float = 0.2) -> torch.Tensor:
-    """(1+gamma) * InstanceNorm(x) + beta, then the activation and the
-    re-zeroing of padded rows. x: (B, T, C); mask: (B, T) bool."""
+def adain_1d(mod: AdaIN1d, x: torch.Tensor, s: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(1+gamma) * InstanceNorm(x) + beta with statistics over the valid
+    rows; padded rows are not re-zeroed. x: (B, T, C); mask: (B, T)."""
     gamma, beta = linear(mod.fc, s).chunk(2, dim=-1)
     xf = x.float()
     m = None if mask is None else mask.to(torch.float32)[..., None]
     mean, var = masked_stats(xf, m)
     y = ((xf - mean) * torch.rsqrt(var + 1e-5)).to(x.dtype)
-    z = (1.0 + gamma[:, None, :]) * y + beta[:, None, :]
+    return (1.0 + gamma[:, None, :]) * y + beta[:, None, :]
+
+
+def adain_1d_act(mod: AdaIN1d, x: torch.Tensor, s: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None, act: str = "none",
+                 alpha: Optional[torch.Tensor] = None,
+                 slope: float = 0.2) -> torch.Tensor:
+    """adain_1d, then the activation and the re-zeroing of padded rows."""
+    z = adain_1d(mod, x, s, mask)
     if act == "snake":
         z = snake(z, alpha.to(z.dtype))
     elif act == "lrelu":

@@ -1,11 +1,15 @@
-"""DSP in plain PyTorch: framing, DFT/mel bases, log-mel, interpolation.
+"""DSP in plain PyTorch: framing, DFT/mel bases, log-mel, the iSTFTNet
+and Vocos STFT/iSTFT heads, interpolation.
 
-Counterpart of styletts2_tpu/ops/stft.py for the functions the inference
-and training slices need. The mel front end reproduces torchaudio's MelSpectrogram
-(n_fft 2048, win 1200, hop 300, power 2, htk mels, no norm) followed by
-the reference's log normalisation, as two true-f32 matmuls against
-windowed DFT bases. `preprocess_wave` routes to kernel B2
-(ops/mel_kernel.py) on CUDA tensors and to its plain version on CPU ones.
+Counterpart of styletts2_tpu/ops/stft.py. The mel front end reproduces
+torchaudio's MelSpectrogram (n_fft 2048, win 1200, hop 300, power 2, htk
+mels, no norm) followed by the reference's log normalisation, as two
+true-f32 matmuls against windowed DFT bases. `preprocess_wave` routes to
+kernel B2 (ops/mel_kernel.py) on CUDA tensors and to its plain version on
+CPU ones. The forward STFT of iSTFTNet's harmonic source and both inverse
+STFTs are matmuls against windowed (inverse-)DFT bases and an overlap-add
+of K = frame_len / hop shifted adds: no host sync and no host copy once
+the bases are cached on the device, so a CUDA graph captures them.
 """
 
 from __future__ import annotations
@@ -36,41 +40,163 @@ def cached_constant(fn):
     return build
 
 
-def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
-    """(B, T) -> (B, n_frames, n_fft) frames, reflect-padded by n_fft // 2
-    on both sides (torch.stft center=True parity). Returns a view."""
-    pad = n_fft // 2
-    x = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0]
+def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int,
+                 center: bool = True,
+                 pad_mode: str = "reflect") -> torch.Tensor:
+    """(B, T) -> (B, n_frames, n_fft) frames (a view). center: padded by
+    n_fft // 2 on both sides (torch.stft parity), by reflection, edge
+    replication or zeros."""
+    if center:
+        if pad_mode not in ("reflect", "replicate", "constant"):
+            raise ValueError(f"frame_signal: unknown pad_mode {pad_mode!r}")
+        pad = n_fft // 2
+        x = F.pad(x[:, None, :], (pad, pad), mode=pad_mode)[:, 0]
     return x.unfold(-1, n_fft, hop_length)
 
 
-def hann_window(win_length: int, n_fft: int) -> torch.Tensor:
+def hann_window(win_length: int, n_fft: int,
+                center: bool = True) -> torch.Tensor:
     """Periodic Hann window, f32, zero-padded to n_fft with the window
-    centred in the frame (torch.stft parity)."""
+    centred in the frame (torch.stft parity) or at its start (center
+    False: the reference's CustomSTFT and Vocos ISTFT)."""
     n = torch.arange(win_length, dtype=torch.float32)
     w = 0.5 - 0.5 * torch.cos(2.0 * math.pi * n / win_length)
-    left = (n_fft - win_length) // 2
+    left = (n_fft - win_length) // 2 if center else 0
     return F.pad(w, (left, n_fft - win_length - left))
 
 
-@cached_constant
-def dft_bases(n_fft: int, win_length: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(win*cos, win*-sin) bases of shape (n_fft, n_fft // 2 + 1), f32.
+def _angles(rows: int, cols: int, n_fft: int) -> torch.Tensor:
+    """(rows, cols) f32 angles 2 pi (r * c mod n_fft) / n_fft: the index is
+    reduced in integers before the trig (cos of ~6e3 rad in f32 loses
+    ~4e-4 to argument reduction)."""
+    r = torch.arange(rows, dtype=torch.int64)[:, None]
+    c = torch.arange(cols, dtype=torch.int64)[None, :]
+    return (2.0 * math.pi / n_fft) * ((r * c) % n_fft).to(torch.float32)
 
-    The angle index n*k is reduced mod n_fft in integers before the trig
-    (cos of ~6e3 rad in f32 loses ~4e-4 to argument reduction), and the
-    DC/Nyquist imaginary columns are exact zeros."""
-    freq_bins = n_fft // 2 + 1
-    window = hann_window(win_length, n_fft)
-    n = torch.arange(n_fft, dtype=torch.int64)[:, None]
-    k = torch.arange(freq_bins, dtype=torch.int64)[None, :]
-    angle = (2.0 * math.pi / n_fft) * ((n * k) % n_fft).to(torch.float32)
+
+@cached_constant
+def dft_bases(n_fft: int, win_length: int, center_window: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(win*cos, win*-sin) bases of shape (n_fft, n_fft // 2 + 1), f32,
+    the window centred (torch.stft) or at the frame's start
+    (center_window False). The DC/Nyquist imaginary columns are exact
+    zeros."""
+    window = hann_window(win_length, n_fft, center_window)
+    angle = _angles(n_fft, n_fft // 2 + 1, n_fft)
     cos_b = torch.cos(angle) * window[:, None]
     sin_b = -torch.sin(angle) * window[:, None]
     sin_b[:, 0] = 0.0
     if n_fft % 2 == 0:
         sin_b[:, -1] = 0.0
     return cos_b, sin_b
+
+
+@cached_constant
+def _device_dft_bases(n_fft: int, win_length: int, center_window: bool,
+                      device: torch.device):
+    return tuple(b.to(device) for b in dft_bases(n_fft, win_length,
+                                                 center_window))
+
+
+@cached_constant
+def idft_bases(n_fft: int, win_length: int, device: torch.device,
+               onesided: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse-DFT bases (n_fft // 2 + 1, n_fft), f32 on `device`:
+    cos / sin of the angle times the window (at the frame's start) and
+    1 / n_fft. onesided: bins 1 .. n_fft/2 - 1 doubled (the irfft's
+    conjugate symmetry folded into the bases, istft_vocos)."""
+    freq_bins = n_fft // 2 + 1
+    window = hann_window(win_length, n_fft, center=False)[None, :]
+    angle = _angles(freq_bins, n_fft, n_fft)
+    cos_b = torch.cos(angle) * window * (1.0 / n_fft)
+    sin_b = torch.sin(angle) * window * (1.0 / n_fft)
+    if onesided:
+        k = torch.arange(freq_bins)[:, None]
+        inner = (k > 0) & ((k < freq_bins - 1) | (n_fft % 2 == 1))
+        fold = torch.where(inner, 2.0, 1.0)
+        cos_b, sin_b = cos_b * fold, sin_b * fold
+    return cos_b.to(device), sin_b.to(device)
+
+
+@cached_constant
+def _window_envelope(n_frames: int, win_length: int, hop_length: int,
+                     device: torch.device) -> torch.Tensor:
+    """(1, (n_frames - 1) * hop + win) overlap-add of the squared window."""
+    w = hann_window(win_length, win_length)
+    return overlap_add((w * w).expand(1, n_frames, win_length),
+                       hop_length).to(device)
+
+
+def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """(B, n_frames, frame_len) -> (B, (n_frames - 1) * hop + frame_len):
+    K = ceil(frame_len / hop) shifted adds of hop-long slices (frames
+    zero-padded to K * hop), no scatter."""
+    b, t, fl = frames.shape
+    k = -(-fl // hop_length)
+    if k * hop_length != fl:
+        frames = F.pad(frames, (0, k * hop_length - fl))
+    chunks = frames.reshape(b, t, k, hop_length)
+    out = sum(F.pad(chunks[:, :, c], (0, 0, c, k - 1 - c)) for c in range(k))
+    return out.reshape(b, (t + k - 1) * hop_length)[
+        :, : (t - 1) * hop_length + fl]
+
+
+def stft_mag_phase(x: torch.Tensor, n_fft: int, hop_length: int,
+                   win_length: int, center: bool = True,
+                   pad_mode: str = "replicate"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T) f32 -> (magnitude, phase), each (B, n_fft // 2 + 1,
+    n_frames): the reference's CustomSTFT.transform (end-padded window,
+    eps 1e-14 inside the sqrt). The atan2 branch point is canonicalised as
+    in the JAX package: a bin whose |im| <= 1e-3 * magnitude gets phase 0
+    (re >= 0) or pi (re < 0), and a bin of magnitude < 1e-5 phase 0."""
+    frames = frame_signal(x.float(), n_fft, hop_length, center, pad_mode)
+    cos_b, sin_b = _device_dft_bases(n_fft, win_length, False, x.device)
+    re = torch.matmul(frames, cos_b).transpose(1, 2)
+    im = torch.matmul(frames, sin_b).transpose(1, 2)
+    mag = torch.sqrt(re * re + im * im + 1e-14)
+    phase = torch.atan2(im, re)
+    near_axis = torch.abs(im) <= 1e-3 * mag
+    zero = torch.zeros((), device=x.device)
+    phase = torch.where(near_axis & (re < 0),
+                        torch.full((), math.pi, device=x.device), phase)
+    phase = torch.where(near_axis & (re >= 0), zero, phase)
+    return mag, torch.where(mag < 1e-5, zero, phase)
+
+
+def istft_conv(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
+               hop_length: int, win_length: int) -> torch.Tensor:
+    """The reference's CustomSTFT.inverse: (B, n_fft // 2 + 1, n_frames)
+    magnitude and phase -> (B, 1, L) f32 waveform. The frames are the real
+    and imaginary parts through the windowed inverse-DFT bases, their
+    difference overlap-added with no window-envelope division, trimmed by
+    n_fft // 2 at both ends (center=True)."""
+    real = magnitude * torch.cos(phase)
+    imag = magnitude * torch.sin(phase)
+    cos_b, sin_b = idft_bases(n_fft, win_length, magnitude.device)
+    frames = (torch.matmul(real.transpose(1, 2), cos_b)
+              - torch.matmul(imag.transpose(1, 2), sin_b))
+    pad = n_fft // 2
+    return overlap_add(frames, hop_length)[:, None, pad:-pad]
+
+
+def istft_vocos(spec_real: torch.Tensor, spec_imag: torch.Tensor,
+                n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
+    """Vocos's ISTFT with padding 'same': (B, n_fft // 2 + 1, n_frames)
+    real and imaginary parts -> (B, L) f32: irfft as matmuls (conjugate
+    symmetry folded into the bases), windowed overlap-add, division by the
+    squared window's overlap-add (at least 1e-11), trimmed by
+    (win - hop) // 2 at both ends."""
+    cos_b, sin_b = idft_bases(n_fft, win_length, spec_real.device,
+                              onesided=True)
+    frames = (torch.matmul(spec_real.transpose(1, 2), cos_b)
+              - torch.matmul(spec_imag.transpose(1, 2), sin_b))
+    y = overlap_add(frames, hop_length)
+    env = _window_envelope(frames.shape[1], win_length, hop_length,
+                           spec_real.device)
+    y = y / torch.clamp(env, min=1e-11)
+    pad = (win_length - hop_length) // 2
+    return y[:, pad:-pad] if pad > 0 else y
 
 
 def _linspace0_f32(stop: np.float32, n: int) -> np.ndarray:

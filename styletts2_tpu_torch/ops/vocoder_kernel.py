@@ -2,9 +2,10 @@
 (csrc/vocoder.cu) and its plain version.
 
 Replaces styletts2_tpu/ops/vocoder_pallas.py fused_ada_snake_conv. It runs
-every AdaIN+Snake+conv pair of the HiFi-GAN generator's AdaINResBlock1
-blocks: 16 blocks x 3 dilations x 2 convs = 96 launches per phase-2 call
-at the default config.
+every AdaIN+Snake+conv pair of the HiFi-GAN and iSTFTNet generators'
+AdaINResBlock1 blocks: 16 blocks x 3 dilations x 2 convs = 96 launches
+per phase-2 call at the default config, 8 x 3 x 2 = 48 for iSTFTNet (its
+last stage at an odd T, 120 F + 1 rows).
 
     z   = snake(x * scale + shift, alpha)     # the AdaIN as an affine
     z   = where(t < n_valid, z, 0)            # bucket padding

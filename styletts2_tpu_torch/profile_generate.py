@@ -1,9 +1,11 @@
 """Where one `generate` call spends its time on the GPU, on both paths.
 
     python -m styletts2_tpu_torch.profile_generate [--text TEXT] [--top N]
+        [--decoder hifigan|istftnet|vocos]
 
 Builds the engine on the default config (bf16 decoder, seeded random
-weights), warms it up, then traces one `generate` with torch.profiler on
+weights; --decoder changes its decoder type, config.with_decoder_type),
+warms it up, then traces one `generate` with torch.profiler on
 the fused path (a single-chunk text replays its CUDA graph) and one with
 `fused_enabled = False` (the two-phase path, eager), and prints for each
 the device time by kernel and the device busy time against the wall time,
@@ -19,8 +21,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import yaml
 
-from styletts2_tpu_torch.config import load_config
+from styletts2_tpu_torch.config import load_config, with_decoder_type
 from styletts2_tpu_torch.infer import StyleTTS2
 
 CONFIG = Path(__file__).resolve().parent.parent / "configs" / "config_example.yaml"
@@ -58,6 +61,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--text", default="Hello there, how are you today?")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--decoder", choices=("hifigan", "istftnet", "vocos"),
+                    default="hifigan")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: no CUDA device")
@@ -65,12 +70,13 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    engine = StyleTTS2(load_config(str(CONFIG)), seed=0)
+    engine = StyleTTS2(load_config(with_decoder_type(
+        yaml.safe_load(CONFIG.read_text()), args.decoder)), seed=0)
     sr = engine.sr
     clip = (0.1 * np.random.default_rng(0).standard_normal(sr * 5)).astype(
         np.float32)
     style = {"style": engine.compute_style(clip)}
-    print(f"card: {card}")
+    print(f"card: {card}; decoder {args.decoder}")
     for fused in (True, False):
         engine.fused_enabled = fused
         profile_one(engine, args.text, style, args.top)

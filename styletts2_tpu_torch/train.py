@@ -84,7 +84,8 @@ class Draws:
 
     coin: True = soft attention, False = the monotonic path (None: drawn);
     starts: (B,) crop starts at the half-mel rate (None: drawn);
-    source: the sine source's (rand_ini, noise) (None: drawn);
+    source: the sine source's (rand_ini, noise) (None: drawn, when the
+    generator has a source);
     dropout: False turns off train-mode dropout and unk masking."""
     coin: Optional[bool] = None
     starts: Optional[torch.Tensor] = None
@@ -232,9 +233,10 @@ def generator_forward(mods, batch: Batch, mels: torch.Tensor,
                                             dropout_p=cfg.dropout, gen=dgen)
     dec = mods["decoder"]
     source = draws.source
-    if source is None:
-        source = DE.draw_source(gen, b, 2 * crop_frames * int(
-            np.prod(dec.generator.rates)), device=dev)
+    # Vocos has no sine source (0 samples per frame): nothing to draw
+    spf = 0 if source is not None else dec.generator.source_samples_per_frame
+    if spf:
+        source = DE.draw_source(gen, b, 2 * crop_frames * spf, device=dev)
     if remat:
         y_rec = checkpoint(dec, en, f0_fake, n_fake, s_crop, None, source,
                            use_reentrant=False)

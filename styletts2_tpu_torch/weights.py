@@ -128,7 +128,9 @@ def init_random(modules: nn.Module, generator: torch.Generator) -> None:
     U(+-1/sqrt(fan_in)) for convs, linears and their biases (fan_in of a
     transposed conv from its (in, out/g, k) weight's dims 1 and 2),
     U(+-1/sqrt(H)) for LSTMs, N(0, 1) embeddings, xavier-uniform for the
-    duration projection; norms and Snake alphas keep their ones/zeros."""
+    duration projection; norms (Vocos's final layer norm among them),
+    Snake alphas and Vocos's layer scales (1 / num_layers) keep their
+    construction values."""
     def uniform_(p, bound):
         with torch.no_grad():
             p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
