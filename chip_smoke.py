@@ -62,10 +62,23 @@ Phases, each printed on its own line:
      the CPU (iSTFTNet gated with the CPU's source STFT shared); one
      full-width D/G step on phase 7's batch (launches, losses, ms per
      step, peak memory) and the small config's CUDA-vs-CPU step;
-  9. the kernels line (JSON), the card line, and the result line.
+  9. the deployment path at full width (bf16, seeded random weights):
+     reference-layout .pth files written by the port (all eight modules;
+     a Vocos config's inference modules with new-style weight-norm keys),
+     StyleTTS2(cfg, path) from each held bit for bit against the engine
+     built from the tree (fused graphs, init time), one train_loop D/G
+     step with the .pth as pretrained_model, a voices directory holding
+     the style clip as WAV and as FLAC (equal styles, B2 counted), then
+     tools/serve_http on 127.0.0.1 with background capture: a cold /tts
+     answered two-phase, a second request while the graph is captured,
+     the capture's wall time and recorded B1 count (== b1_per_eval), the
+     same request through the graph (equal length), /tts_batch on the
+     eight texts == generate_batch row by row (1/RTF);
+ 10. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
-`--b1-only` stops after phase 3; with `--package-from DIR` the package
+`--b1-only` stops after phase 3, `--deploy-only` runs phase 9 alone (on
+a fresh phase-7 workspace); with `--package-from DIR` the package
 (kernels, wrappers, config) comes from the checkout in DIR, so two commits'
 B1 kernels are timed by the same code in one run.
 """
@@ -519,45 +532,43 @@ def phase_b2(chk: Checks):
     return dict(max_abs_err=max_err, shapes=out, **out["style B=1"])
 
 
+KERNEL_NAMES = {"b1": "ada_snake_conv", "b2": "log_mel"}
+
+
+def launches():
+    """{b1, b2}: the process's launch counts (ops/launch_count: the
+    wrappers' launches plus what each graph replay recorded at capture; a
+    capture's own wrapper calls launch nothing and are not counted)."""
+    from styletts2_tpu_torch.ops import launch_count as LC
+
+    return {k: LC.get(name) for k, name in KERNEL_NAMES.items()}
+
+
 class Launches:
-    """The kernel launches of one window of the engine's work: every count
-    is set to 0 when the window opens. A graph replay runs no wrapper, so
-    it counts the launches recorded at capture (engine.replayed_launches);
-    a capture inside the window ran the wrappers without launching, so its
-    recorded launches come off the wrappers' counts."""
+    """The kernel launches of one window of the engine's work: the counts,
+    the engine's eager phase-2 evaluations and its graph replays are set to
+    0 when the window opens; `read` also gives the graphs captured in the
+    window."""
 
     def __init__(self, engine):
-        from styletts2_tpu_torch.ops import mel_kernel as MK
-        from styletts2_tpu_torch.ops import vocoder_kernel as VK
+        from styletts2_tpu_torch.ops import launch_count as LC
 
-        self.engine, self.fns = engine, {"b1": VK.ada_snake_conv,
-                                         "b2": MK.log_mel}
-        for fn in self.fns.values():
-            fn.launches = 0
+        LC.reset()
+        self.engine = engine
         engine.phase2_calls = engine.graph_replays = 0
-        engine.replayed_launches = dict.fromkeys(engine.replayed_launches, 0)
         self.graphs = set(engine.graphs)
 
     def read(self):
         e = self.engine
-        new = [g for k, g in e.graphs.items() if k not in self.graphs]
-        out = dict(phase2_calls=e.phase2_calls, replays=e.graph_replays,
-                   captures=len(new))
-        for key, fn in self.fns.items():
-            name = fn.__name__
-            out[key + "_wrapper"] = fn.launches
-            out[key] = (fn.launches - sum(g.launches[name] for g in new)
-                        + e.replayed_launches[name])
-        return out
+        return dict(phase2_calls=e.phase2_calls, replays=e.graph_replays,
+                    captures=len(set(e.graphs) - self.graphs), **launches())
 
 
 def check_b1_counts(chk: Checks, c, what: str, per_eval: int) -> None:
-    """B1's wrapper runs `per_eval` times (b1_per_eval: 96 hifigan, 48
-    istftnet, 0 vocos) per eager phase-2 evaluation and per capture; each
-    replay launches the ones it recorded."""
-    chk.check(c["b1_wrapper"] == per_eval * (c["phase2_calls"]
-                                             + c["captures"])
-              and c["b1"] == per_eval * (c["phase2_calls"] + c["replays"])
+    """B1 launched `per_eval` times (b1_per_eval: 96 hifigan, 48 istftnet,
+    0 vocos) per eager phase-2 evaluation (a background capture's warm-up
+    call among them) and per graph replay."""
+    chk.check(c["b1"] == per_eval * (c["phase2_calls"] + c["replays"])
               and (c["b1"] > 0) == (per_eval > 0), f"{what}: B1 launches {c}")
 
 
@@ -580,9 +591,12 @@ def phase2_spread(engine, text: str, style):
     on its frame bucket (the reference), at the next frame bucket and at
     batch 8 (rel-l2 over the text's samples); the rel-l2 of the batch-8
     run's F0 curve against batch 1's; the decoder alone at batch 1 fed the
-    batch-8 run's F0 and N (is the F0/N path what moves?); and batch 8
+    batch-8 run's F0 and N (is the F0/N path what moves?); batch 8
     against batch 1 again with B1's plain version in place of the kernel,
-    and with cuDNN off (is either of them what moves?)."""
+    and with cuDNN off (is either of them what moves?); for iSTFTNet also
+    with one source STFT, batch 1's, fed to both runs through
+    ISTFTNetGenerator.source_features (is the source's branch-cut phase
+    what moves?)."""
     import contextlib
 
     import torch
@@ -636,11 +650,34 @@ def phase2_spread(engine, text: str, style):
             finally:
                 VK.ada_snake_conv = kernel
 
-        for name, ctx in (("batch8_plain_b1", plain_b1),
-                          ("batch8_cudnn_off",
-                           lambda: torch.backends.cudnn.flags(enabled=False))):
+        @contextlib.contextmanager
+        def shared_source():
+            from styletts2_tpu_torch.nn.istftnet import ISTFTNetGenerator
+
+            features = ISTFTNetGenerator.source_features
+            kept = []
+
+            def shared(self, f0, source=None):
+                out["source_calls"] = out.get("source_calls", 0) + 1
+                if not kept:
+                    kept.append(features(self, f0, source))
+                return kept[0].expand(f0.shape[0], -1, -1).contiguous()
+
+            ISTFTNetGenerator.source_features = shared
+            try:
+                yield
+            finally:
+                ISTFTNetGenerator.source_features = features
+
+        ctxs = [("batch8_plain_b1", plain_b1),
+                ("batch8_cudnn_off",
+                 lambda: torch.backends.cudnn.flags(enabled=False))]
+        if e.cfg.model_params.decoder.type == "istftnet":
+            ctxs.append(("batch8_shared_source", shared_source))
+        for name, ctx in ctxs:
             with ctx():
-                out[name] = rel_l2(run(8, fb)[1], run(1, fb)[1])
+                one = run(1, fb)[1]  # batch 1 first: it sets the source
+                out[name] = rel_l2(run(8, fb)[1], one)
         return out
 
 
@@ -649,7 +686,12 @@ def spread_line(sp) -> str:
             f" bucket {sp['frame_bucket']}): next bucket rel-l2 "
             f"{sp['next_bucket']:.3g}, batch 8 {sp['batch8']:.3g} (with B1's "
             f"plain version {sp['batch8_plain_b1']:.3g}, with cuDNN off "
-            f"{sp['batch8_cudnn_off']:.3g}); batch 8's F0 vs batch 1's "
+            f"{sp['batch8_cudnn_off']:.3g}"
+            + (f", with batch 1's source STFT shared "
+               f"{sp['batch8_shared_source']:.3g} ({sp['source_calls']} "
+               f"calls took it)"
+               if "batch8_shared_source" in sp else "")
+            + f"); batch 8's F0 vs batch 1's "
             f"{sp['f0']:.3g}, the decoder at batch 1 fed batch 8's F0/N "
             f"{sp['decoder_fed_batch8_f0n']:.3g}")
 
@@ -723,7 +765,7 @@ def phase_engine(chk: Checks, cfg, card: str):
     check_b1_counts(chk, c, "generate", per_eval)
     chk.check(c["replays"] >= 1, "the short text replayed a fused graph")
     chk.check(c["b2"] >= 1, "B2 launched on the main path")
-    chk.check(all(g.launches["ada_snake_conv"] == per_eval
+    chk.check(all(g.launches.get("ada_snake_conv", 0) == per_eval
                   for g in engine.graphs.values()),
               f"every fused graph recorded {per_eval} B1 launches")
 
@@ -1059,8 +1101,8 @@ def phase_train(chk: Checks, root: Path, card: str):
     from styletts2_tpu_torch.config import load_config
     from styletts2_tpu_torch.data.loader import collate
     from styletts2_tpu_torch.models import build_model
+    from styletts2_tpu_torch.ops import launch_count as LC
     from styletts2_tpu_torch.ops import mel_kernel as MK
-    from styletts2_tpu_torch.ops import vocoder_kernel as VK
     from styletts2_tpu_torch.train import (DISC_MODULES, GEN_MODULES, Batch,
                                           PhaseTimes)
 
@@ -1081,9 +1123,9 @@ def phase_train(chk: Checks, root: Path, card: str):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    MK.log_mel.launches = VK.ada_snake_conv.launches = 0
+    LC.reset()
     trainer, wall = timed(lambda: train_loop.main(["-p", str(cfg_path)]))
-    counts = dict(b1=VK.ada_snake_conv.launches, b2=MK.log_mel.launches)
+    counts = launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     hist, evals = trainer.history, trainer.evals
     n_steps = len(hist)
@@ -1130,14 +1172,13 @@ def phase_train(chk: Checks, root: Path, card: str):
         return plain(*a, **k)
 
     MK.log_mel_plain = counted_plain
-    MK.log_mel.launches = VK.ada_snake_conv.launches = 0
+    LC.reset()
     try:
         step(trainer.modules, batch, gen)
         torch.cuda.synchronize()
     finally:
         MK.log_mel_plain = plain
-    one = dict(b1=VK.ada_snake_conv.launches, b2=MK.log_mel.launches,
-               plain=n_plain[0])
+    one = dict(launches(), plain=n_plain[0])
     chk.check(one == dict(b1=0, b2=B2_PER_STEP, plain=3),
               f"one step: {one} (want B2 {B2_PER_STEP}, B1 0, the plain "
               "formula only in the 3 MRSTFT backward recomputes)")
@@ -1474,7 +1515,7 @@ def phase_decoder(chk: Checks, root: Path, card: str, dec_type: str,
     check_b1_counts(chk, c, f"{tag} generate", per_eval)
     chk.check(c["replays"] >= 1 and c["b2"] >= 1,
               f"{tag} a fused graph replayed, B2 launched: {c}")
-    chk.check(all(g.launches["ada_snake_conv"] == per_eval
+    chk.check(all(g.launches.get("ada_snake_conv", 0) == per_eval
                   for g in engine.graphs.values()),
               f"{tag} every fused graph recorded {per_eval} B1 launches")
     print(f"{tag} compute_style + generate short: {len(wav)} samples "
@@ -1636,8 +1677,7 @@ def phase_decoder_train(chk: Checks, dec_type: str, workload, tag: str,
     from styletts2_tpu_torch.config import load_config, with_decoder_type
     from styletts2_tpu_torch.data.loader import bin_crop_frames
     from styletts2_tpu_torch.models import build_model
-    from styletts2_tpu_torch.ops import mel_kernel as MK
-    from styletts2_tpu_torch.ops import vocoder_kernel as VK
+    from styletts2_tpu_torch.ops import launch_count as LC
     from styletts2_tpu_torch.optim import MultiOptimizer
 
     cfg_path, batch, bin_id = workload
@@ -1655,9 +1695,9 @@ def phase_decoder_train(chk: Checks, dec_type: str, workload, tag: str,
               for k in TT.GEN_MODULES + TT.DISC_MODULES}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    MK.log_mel.launches = VK.ada_snake_conv.launches = 0
+    LC.reset()
     metrics, first = timed(lambda: step(mods, batch, gen))
-    counts = dict(b1=VK.ada_snake_conv.launches, b2=MK.log_mel.launches)
+    counts = launches()
     metrics = {k: float(v) for k, v in metrics.items()}
     moved = {k: any(not torch.equal(a, p) for a, p in
                     zip(before[k], mods[k].parameters())) for k in before}
@@ -1678,8 +1718,7 @@ def phase_decoder_train(chk: Checks, dec_type: str, workload, tag: str,
         runs.append((time.perf_counter() - t) * 1e3 / STEPS_TIMED)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = 1 + 2 * STEPS_TIMED
-    launches_all = dict(b1=VK.ada_snake_conv.launches,
-                        b2=MK.log_mel.launches)
+    launches_all = launches()
     chk.check(launches_all == dict(b1=0, b2=B2_PER_STEP * n_steps),
               f"{tag} {n_steps} steps' launches {launches_all}")
     print(f"{tag} full-width D/G step (batch {batch.waves.shape[0]}, bin "
@@ -1696,11 +1735,301 @@ def phase_decoder_train(chk: Checks, dec_type: str, workload, tag: str,
                 launches_all=launches_all, losses=metrics)
 
 
+def quantised(x: np.ndarray) -> np.ndarray:
+    """x moved to half a 16-bit step off an integer, so that write_wav (x *
+    32767 truncated in f32) and write_flac (in f64) store the same
+    samples."""
+    q = np.round(np.clip(x, -0.999, 0.999) * 32767.0)
+    return ((q + 0.5 * np.sign(q)) / 32767.0).astype(np.float32)
+
+
+def wav_pcm(data: bytes) -> np.ndarray:
+    """The int16 samples of a mono 16-bit WAV in memory."""
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(data)) as f:
+        return np.frombuffer(f.readframes(f.getnframes()), "<i2")
+
+
+def http(url: str, body=None):
+    """(wall seconds, response bytes) of a GET, or of a POST of JSON."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        data = r.read()
+    return time.perf_counter() - t0, data
+
+
+def phase_deploy(chk: Checks, root: Path, card: str, train_cfg: Path,
+                 windows):
+    """The deployment path at full width (config_example.yaml, bf16
+    decoder, seeded random weights): reference-layout .pth files written by
+    the port (all eight modules; a Vocos config's four inference modules
+    with new-style weight-norm keys), each loaded by StyleTTS2(cfg, path)
+    and held bit for bit against the engine built from the same tree; one
+    train_loop D/G step with the .pth as pretrained_model; a voices
+    directory of the style clip as WAV and as FLAC (equal styles, B2
+    counted); then serve_http on 127.0.0.1 with async capture: a cold /tts
+    answered two-phase while the worker captures the pair's graph, a
+    request during the capture, the graph's B1 count, the same request
+    through the graph, and /tts_batch against generate_batch."""
+    import base64
+    import copy
+    import threading
+
+    import torch
+    import yaml
+
+    from styletts2_tpu_torch import audio as AUD
+    from styletts2_tpu_torch import train_loop
+    from styletts2_tpu_torch import weights as W
+    from styletts2_tpu_torch.config import load_config, with_decoder_type
+    from styletts2_tpu_torch.convert import save_torch_checkpoint
+    from styletts2_tpu_torch.flac import write_flac
+    from styletts2_tpu_torch.infer import StyleTTS2
+    from styletts2_tpu_torch.models import (INFERENCE_MODULES,
+                                            build_inference_modules,
+                                            build_model)
+    from styletts2_tpu_torch.ops import launch_count as LC
+    from styletts2_tpu_torch.tools.serve_http import (TTSService,
+                                                      make_server, wav_bytes)
+
+    tag = "[9 deploy]"
+    ws = root / "build" / "deploy_smoke"
+    shutil.rmtree(ws, ignore_errors=True)
+    (ws / "voices").mkdir(parents=True)
+    raw = yaml.safe_load((root / "configs" / "config_example.yaml")
+                         .read_text())
+    out = {}
+
+    def tree_of(mods, seed):
+        W.init_random(mods, torch.Generator().manual_seed(seed))
+        W.split_weight_norm(mods)
+        return {k: W.module_tree(m) for k, m in mods.items()}
+
+    cfgs = {"hifigan": load_config(copy.deepcopy(raw)),
+            "vocos": load_config(with_decoder_type(copy.deepcopy(raw),
+                                                   "vocos"))}
+    t0 = time.perf_counter()
+    nets = {"hifigan": tree_of(build_model(cfgs["hifigan"].model_params), 5),
+            "vocos": tree_of(build_inference_modules(
+                cfgs["vocos"].model_params), 6)}
+    paths = {k: ws / f"{k}.pth" for k in nets}
+    for k, net in nets.items():
+        save_torch_checkpoint(net, str(paths[k]), new_style_modules=(
+            ("decoder",) if k == "vocos" else ()))
+    sizes = {k: p.stat().st_size / 2 ** 20 for k, p in paths.items()}
+    keys = torch.load(str(paths["vocos"]), map_location="cpu",
+                      weights_only=False)["net"]["decoder"]
+    chk.check(any(".parametrizations.weight.original1" in k for k in keys),
+              f"{tag} the Vocos .pth has new-style weight-norm keys")
+    print(f"{tag} wrote reference-layout .pth files: hifigan (8 modules) "
+          f"{sizes['hifigan']:.1f} MiB, vocos (4 modules, new-style weight "
+          f"norm) {sizes['vocos']:.1f} MiB in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+
+    # the engine built from each .pth against the one built from its tree
+    text = TEXTS["medium"]
+    clip = quantised(style_clip(24000))
+    engines = {}
+    for k in ("vocos", "hifigan"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        from_pth = StyleTTS2(cfgs[k], str(paths[k]), seed=0)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        from_tree = StyleTTS2(cfgs[k], params={m: nets[k][m] for m in
+                                               INFERENCE_MODULES}, seed=0)
+        style = {"style": from_pth.compute_style(clip), "speed": 1.0}
+        wavs = []
+        for e in (from_pth, from_tree):
+            e._rng = np.random.default_rng(7)
+            wavs.append(e.generate(text, style))
+        same = (np.array_equal(wavs[0], wavs[1])
+                and from_pth.graph_replays == from_tree.graph_replays == 1)
+        chk.check(same and len(wavs[0]) > 8000,
+                  f"{tag} {k}: StyleTTS2(cfg, .pth) == StyleTTS2(cfg, "
+                  f"params=tree) through a fused graph")
+        print(f"{tag} {k}: StyleTTS2(cfg, .pth) init {load_ms:.1f} ms; "
+              f"fused generate of the medium text ({len(wavs[0])} samples, "
+              f"a graph replay each) equal to the tree-built engine's "
+              f"{same} (rel-l2 {rel_l2(wavs[0], wavs[1]):.3g}) | {card}",
+              flush=True)
+        out[f"{k}_pth_init_ms"] = load_ms
+        engines[k] = from_pth
+        del from_tree
+    del engines["vocos"], nets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one train_loop D/G step with the .pth as pretrained_model: the first
+    # duration bin's first batch of phase 7's workspace
+    tcfg = yaml.safe_load(train_cfg.read_text())
+    data = tcfg["data_params"]
+    lines = [ln for ln in Path(data["train_data"]).read_text().splitlines(
+        keepends=True) if "/b0_" in ln][: tcfg["batch_size"]]
+    (ws / "one_batch.txt").write_text("".join(lines))
+    tcfg.update(pretrained_model=str(paths["hifigan"]),
+                load_only_params=True, epochs=1, save_freq=1000,
+                log_dir=str(ws / "runs"),
+                data_params=dict(data, train_data=str(ws / "one_batch.txt"),
+                                 val_data=str(ws / "one_batch.txt")))
+    (ws / "train.yaml").write_text(yaml.safe_dump(tcfg, allow_unicode=True))
+    LC.reset()
+    trainer, wall = timed(lambda: train_loop.main(["-p",
+                                                   str(ws / "train.yaml")]))
+    counts = launches()
+    hist = trainer.history
+    finite = all(np.isfinite(v) for h in hist for v in h["metrics"].values())
+    chk.check(len(hist) == 1 and finite and counts == dict(
+        b1=0, b2=B2_PER_STEP + B2_PER_EVAL * len(trainer.evals)),
+        f"{tag} train_loop from the .pth: {len(hist)} steps, finite "
+        f"{finite}, launches {counts}")
+    windows["deploy train"] = counts
+    print(f"{tag} train_loop.main with the .pth as pretrained_model: "
+          f"{len(hist)} D/G step, {len(trainer.evals)} eval batch in "
+          f"{wall:.1f} s, losses finite {finite}, launches {counts} | "
+          f"{card}", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the voices directory: the style clip as WAV and as FLAC
+    engine = engines.pop("hifigan")
+    per_eval = b1_per_eval(engine.cfg.model_params.decoder)
+    AUD.write_wav(str(ws / "voices" / "wav_voice.wav"), clip)
+    write_flac(str(ws / "voices" / "flac_voice.flac"), clip)
+    win = Launches(engine)
+    service = TTSService.build(engine, voices_dir=str(ws / "voices"))
+    c = windows["deploy voices"] = win.read()
+    same = np.array_equal(service.styles["wav_voice"],
+                          service.styles["flac_voice"])
+    chk.check(same and c["b2"] >= 2 and c["b1"] == 0,
+              f"{tag} FLAC voice == WAV voice, B2 launched: {c}")
+    print(f"{tag} voices dir (the 5-s clip as WAV and as FLAC): styles "
+          f"equal {same}; launches {c}", flush=True)
+
+    # serve_http with background capture
+    engine.fused_compile = "async"
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        health = json.loads(http(base + "/health")[1])
+        chk.check(health["ok"] and health["n_voices"] == 2,
+                  f"{tag} /health {health}")
+        req = {"text": TEXTS["short"], "voice": "wav_voice"}
+        win = Launches(engine)
+        graphs0 = set(engine.graphs)
+        engine._rng = np.random.default_rng(7)
+        cold_s, cold = http(base + "/tts", req)
+        queued = set(engine._fused_pending) | (set(engine.graphs) - graphs0)
+        engine._rng = np.random.default_rng(7)
+        at_start = bool(engine._fused_pending)
+        during_s, during = http(base + "/tts", req)
+        still = bool(engine._fused_pending)
+        engine.wait_fused_compiles()  # re-raises a failed capture
+        new = set(engine.graphs) - graphs0
+        c_cold = win.read()
+        chk.check(len(new) == 1 and new == queued
+                  and c_cold["replays"] == 0 and cold == during,
+                  f"{tag} a cold /tts answered two-phase while its pair "
+                  f"{sorted(queued)} was captured in the background "
+                  f"(graphs new {sorted(new)}): {c_cold}")
+        check_b1_counts(chk, c_cold, f"{tag} cold requests", per_eval)
+        key = next(iter(new)) if len(new) == 1 else None
+        g = engine.graphs.get(key)
+        rec_b1 = g.launches.get("ada_snake_conv") if g else None
+        chk.check(g is not None and g.background and rec_b1 == per_eval,
+                  f"{tag} the background graph recorded {rec_b1} B1 "
+                  f"launches (want {per_eval})")
+        win = Launches(engine)
+        warm = []
+        for _ in range(3):
+            engine._rng = np.random.default_rng(7)
+            warm.append(http(base + "/tts", req))
+        c_warm = win.read()
+        # the same request two-phase with no capture running: what the
+        # cold and the during-capture requests cost beyond the path itself
+        engine.fused_enabled = False
+        engine._rng = np.random.default_rng(7)
+        plain_s, plain = http(base + "/tts", req)
+        engine.fused_enabled = True
+        chk.check(plain == cold, f"{tag} the two-phase request repeats")
+        windows["deploy serve"] = {k: c_cold[k] + c_warm[k] for k in c_cold}
+        check_b1_counts(chk, c_warm, f"{tag} warm requests", per_eval)
+        pcm = [wav_pcm(b) for b in (cold, warm[0][1])]
+        chk.check(c_warm["replays"] == 3 and c_warm["phase2_calls"] == 0
+                  and len(pcm[0]) == len(pcm[1])
+                  and all(w[1] == warm[0][1] for w in warm),
+                  f"{tag} the same request through the graph: "
+                  f"{len(pcm[1])} samples vs two-phase {len(pcm[0])}, "
+                  f"{c_warm}")
+        warm_ms = float(np.median([w[0] for w in warm])) * 1e3
+        secs = len(pcm[1]) / engine.sr
+        print(f"{tag} /tts short text, voice from the WAV: cold (two-phase,"
+              f" capture queued) {cold_s * 1e3:.1f} ms; during the capture "
+              f"(still capturing at its end: {still}) {during_s * 1e3:.1f} "
+              f"ms (capturing at its start: {at_start}); two-phase with no "
+              f"capture running {plain_s * 1e3:.1f} ms; cold capture on "
+              f"the worker (warm-up call + capture) "
+              f"{g.capture_ms if g else float('nan'):.1f} ms; through the "
+              f"graph {', '.join(f'{w[0] * 1e3:.1f}' for w in warm)} ms, "
+              f"median {warm_ms:.1f} ms (1/RTF {secs / warm_ms * 1e3:.1f}); "
+              f"graph recorded {rec_b1} B1 launches; samples two-phase "
+              f"{len(pcm[0])} vs graph {len(pcm[1])}, rel-l2 "
+              f"{rel_l2(pcm[1] * 1.0, pcm[0] * 1.0):.3g} | {card}",
+              flush=True)
+
+        engine.duration_scale = DURATION_SCALE
+        style = {"style": service.styles["wav_voice"], "speed": 1.0}
+        want = engine.generate_batch(BATCH_TEXTS, style, stabilize=False)
+        win = Launches(engine)
+        batch_s, body = http(base + "/tts_batch", {
+            "texts": BATCH_TEXTS, "voice": "wav_voice", "stabilize": False})
+        c = windows["deploy tts_batch"] = win.read()
+        check_b1_counts(chk, c, f"{tag} /tts_batch", per_eval)
+        got = [base64.b64decode(b) for b in json.loads(body)["wavs"]]
+        same = (len(got) == len(want) and all(
+            a == wav_bytes(w, engine.sr) for a, w in zip(got, want)))
+        chk.check(same, f"{tag} /tts_batch == generate_batch, row by row")
+        secs = sum(len(w) for w in want) / engine.sr
+        print(f"{tag} /tts_batch {len(BATCH_TEXTS)} texts: {secs:.2f} s "
+              f"audio in {batch_s * 1e3:.1f} ms, 1/RTF {secs / batch_s:.1f},"
+              f" rows == generate_batch {same}; launches {c} | {card}",
+              flush=True)
+        engine.duration_scale = None
+        out.update(cold_ms=cold_s * 1e3, during_capture_ms=during_s * 1e3,
+                   two_phase_ms=plain_s * 1e3,
+                   capturing_at_start=at_start, capturing_at_end=still,
+                   capture_ms=g.capture_ms if g else None,
+                   graph_b1=rec_b1, warm_ms=warm_ms,
+                   warm_runs_ms=[w[0] * 1e3 for w in warm],
+                   batch_ms=batch_s * 1e3, batch_inv_rtf=secs / batch_s)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.fused_compile = "sync"
+    del engine, service
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write the measurements here")
     ap.add_argument("--b1-only", action="store_true",
                     help="run phases 1-3 only and print no result line")
+    ap.add_argument("--deploy-only", action="store_true",
+                    help="run phases 1, 2 and 9 only (with phase 7's "
+                    "workspace) and print no result line")
     ap.add_argument("--package-from", metavar="DIR",
                     help="import styletts2_tpu_torch from the checkout in "
                     "DIR instead of this one (with --b1-only: time another "
@@ -1742,6 +2071,16 @@ def main() -> int:
           f"; total {time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = load_config(str(root / "configs" / "config_example.yaml"))
+    if args.deploy_only:
+        cfg_path = train_workspace(root / "build" / "train_smoke",
+                                   root / "configs" / "config_example.yaml")
+        deploy = phase_deploy(chk, root, card, cfg_path, {})
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"card": card, "deploy": deploy, "failed": chk.failed},
+                indent=1))
+        return 1 if chk.failed else 0
     b1 = phase_b1(chk, cfg, frame_bucket=256)
     if args.b1_only:
         if args.json:
@@ -1760,7 +2099,8 @@ def main() -> int:
     for dec_type in DECODER_TYPES:
         decoders[dec_type] = phase_decoder(chk, root, card, dec_type,
                                            workload, windows)
-    # the main path's launches: every window of phases 5, 7 and 8 (graph
+    deploy = phase_deploy(chk, root, card, workload[0], windows)
+    # the main path's launches: every window of phases 5, 7, 8 and 9 (graph
     # replays counted as the launches they recorded)
     n_b1 = sum(c["b1"] for c in windows.values())
     n_b2 = sum(c["b2"] for c in windows.values())
@@ -1791,7 +2131,7 @@ def main() -> int:
         Path(args.json).write_text(json.dumps(
             {"card": card, "kernels": kernels, "b1": b1, "b2": b2,
              "engine": engine_out, "launches": windows,
-             "train": train_out, "decoders": decoders,
+             "train": train_out, "decoders": decoders, "deploy": deploy,
              "failed": chk.failed}, indent=1))
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} checks failed: {chk.failed}",

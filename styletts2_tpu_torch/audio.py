@@ -4,8 +4,8 @@ training data.
 The port's own copy of the functions of styletts2_tpu/audio.py that
 `StyleTTS2.compute_style` and the training loader need: WAV reading and
 writing, header-only length probing, resampling, silence trimming and the
-spectral-gate denoiser. Pure numpy/scipy, per clip, not hot. FLAC input
-(styletts2_tpu/flac.py) is not ported yet.
+spectral-gate denoiser. Pure numpy/scipy, per clip, not hot. FLAC files
+(told apart by their magic) decode through flac.py.
 """
 
 from __future__ import annotations
@@ -86,25 +86,27 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
 
 
 def read_audio(path: str) -> Tuple[np.ndarray, int]:
-    """Read an audio file -> (float32 mono, sr). WAV only: a FLAC file
-    raises (its decoder is not ported yet)."""
+    """Read WAV or FLAC, by magic bytes -> (float32 mono, sr)."""
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"fLaC":
-        raise NotImplementedError(f"{path}: FLAC input is not ported yet; "
-                                  "convert it to WAV")
+        from styletts2_tpu_torch.flac import read_flac
+
+        return read_flac(path)
     return read_wav(path)
 
 
 def probe_duration_samples(path: str, target_sr: int) -> int:
-    """Sample count at target_sr from the WAV header only (no decode): feeds
+    """Sample count at target_sr from the header only (no decode): feeds
     the duration-binned sampler (reference get_length,
     meldataset.py:181-183)."""
     with open(path, "rb") as f:
         data = f.read(1 << 16)  # headers live in the first chunk
     if data[:4] == b"fLaC":
-        raise NotImplementedError(f"{path}: FLAC input is not ported yet; "
-                                  "convert it to WAV")
+        from styletts2_tpu_torch.flac import probe_flac_info
+
+        n, sr = probe_flac_info(path)
+        return int(n * (target_sr / sr))
     try:
         tag, ch, sr, bits, off, _ = _parse_wav_header(data)
     except ValueError:

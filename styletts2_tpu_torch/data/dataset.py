@@ -1,8 +1,8 @@
 """Dataset: `path|transcript` list files -> (waveform, token) examples.
 
 Parity: reference meldataset.FilePathDataset (meldataset.py:58-131):
-* wav loading (stdlib WAV reader; first channel of stereo; FLAC not ported
-  yet), resample to 24 kHz
+* audio loading (audio.read_audio: WAV, or FLAC through flac.py; first
+  channel of stereo), resample to 24 kHz
 * 0.5 s of silence padded on both ends (meldataset.py:111)
 * tokenized transcript wrapped with pad id 0 (meldataset.py:115-116)
 

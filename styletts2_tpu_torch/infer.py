@@ -32,13 +32,23 @@ runs through kernel B2, and every AdaINResBlock1 conv pair of the
 HiFi-GAN and iSTFTNet generators through kernel B1 on CUDA, in eager
 calls and inside the captured graphs; Vocos runs no B1.
 
-Not ported yet: background ("async") graph capture, CUDA graphs for the
-batched two-phase calls, multi-GPU (`mesh`, `seq_parallel`).
+`fused_compile = "async"` (the serving tools set it) answers a request
+whose (token, frame) pair has no graph yet on the two-phase path and
+captures the pair's graph on a background thread meanwhile; the next
+request on that pair replays it. `wait_fused_compiles` waits for the
+queued captures and re-raises the first that failed.
+
+Not ported yet: CUDA graphs for the batched two-phase calls, multi-GPU
+(`mesh`, `seq_parallel`).
 """
 
 from __future__ import annotations
 
 import bisect
+import queue
+import threading
+import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,9 +60,8 @@ from styletts2_tpu_torch import weights as W
 from styletts2_tpu_torch.config import Config, load_config
 from styletts2_tpu_torch.models import build_inference_modules
 from styletts2_tpu_torch.ops import align as ALN
-from styletts2_tpu_torch.ops import mel_kernel as MK
+from styletts2_tpu_torch.ops import launch_count as LC
 from styletts2_tpu_torch.ops import stft as OPS
-from styletts2_tpu_torch.ops import vocoder_kernel as VK
 from styletts2_tpu_torch.text import (TextCleaner, build_symbol_dict,
                                       split_into_chunks, tokens_for_sentence)
 
@@ -68,8 +77,6 @@ BATCH_BUCKETS = (1, 2, 4, 8, 16)
 # moves with the machine.
 PHASE2_CALL_MS = 44.79
 PHASE2_ROW_MS_PER_FRAME = 0.0186
-# the kernel wrappers whose launches a captured graph replays
-_KERNELS = (VK.ada_snake_conv, MK.log_mel)
 
 
 def _bucket(buckets, n: int) -> int:
@@ -244,7 +251,7 @@ class _FusedGraph:
     and what the capture recorded."""
 
     def __init__(self, graph, inputs, pcm, total, launches, peak_bytes,
-                 pool_growth_bytes):
+                 pool_growth_bytes, capture_ms, background):
         self.graph = graph
         self.inputs = inputs
         self.pcm = pcm
@@ -253,12 +260,18 @@ class _FusedGraph:
                                     pin_memory=True)
         self.total_host = torch.empty(total.shape, dtype=total.dtype,
                                       pin_memory=True)
-        # kernel launches recorded in the graph, by wrapper name
+        # kernel launches recorded in the graph (one replay's), by
+        # wrapper name: the capturing thread's launches only
         self.launches = launches
         # peak bytes allocated while capturing, and how much the shared
-        # graph pool grew
+        # graph pool grew; None for a background capture (the device-wide
+        # memory stats would take in the serving thread's allocations)
         self.peak_bytes = peak_bytes
         self.pool_growth_bytes = pool_growth_bytes
+        # wall ms of the eager warm-up call and the capture, and whether
+        # the capture ran on the background thread
+        self.capture_ms = capture_ms
+        self.background = background
 
 
 class StyleTTS2:
@@ -306,23 +319,34 @@ class StyleTTS2:
                                          self.cfg.tpu.decoder_dtype)
                       == "bfloat16" else torch.float32)
         # phase-2 evaluations run eagerly (two-phase calls and eager fused
-        # calls; graph captures and replays are not among them)
+        # calls, the background thread's included; graph captures and
+        # replays are not among them), and fused-graph replays; a replay
+        # adds its recorded launches to ops/launch_count
         self.phase2_calls = 0
-        # fused-graph replays, and the kernel launches they made, by
-        # wrapper name (a replay runs no wrapper, so the wrappers' own
-        # counts miss these)
         self.graph_replays = 0
-        self.replayed_launches = {fn.__name__: 0 for fn in _KERNELS}
+        self._count_lock = threading.Lock()
         # (token bucket, frame bucket) -> _FusedGraph; every graph
         # allocates from one pool (see _capture_fused)
         self.graphs: Dict[Tuple[int, int], _FusedGraph] = {}
         self._graph_pool = None
+        self._capture_lock = threading.Lock()
+        # "sync": a cold (token, frame) pair is captured (CUDA) or run
+        # (CPU) in the request; "async": the request takes the two-phase
+        # path and the pair is captured on a background thread
+        self.fused_compile: str = "sync"
+        self._fused_ready: set = set()
+        self._fused_pending: set = set()
+        self._fused_failed: set = set()
+        self._fused_errors: List[BaseException] = []
+        self._fused_queue: Optional[queue.Queue] = None
+        self._fused_thread: Optional[threading.Thread] = None
         # device-to-host copies of the two-phase path (see _HostCopy)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
         self.modules = build_inference_modules(mp)
         if params is None and models_path:
+            # a native .ckpt or a reference .pth
             params = W.load_checkpoint_net(models_path)
         if params is not None:
             W.load_param_tree(self.modules, params, decoder_dtype=self.dtype)
@@ -390,9 +414,13 @@ class StyleTTS2:
         pcm = torch.clamp(wav[..., 0].float(), -1.0, 1.0) * 32767.0
         return pcm.to(torch.int16)
 
+    def _count_eval(self) -> None:
+        with self._count_lock:  # the capture thread counts too
+            self.phase2_calls += 1
+
     @torch.inference_mode()
     def _phase2(self, t_en, d, s, durs, n_frames: int) -> torch.Tensor:
-        self.phase2_calls += 1
+        self._count_eval()
         return self._phase2_impl(t_en, d, s, durs, n_frames)
 
     def _fused_impl(self, tokens, mask, s, scal, noise, n_frames: int):
@@ -411,7 +439,7 @@ class StyleTTS2:
     def _fused(self, tokens, mask, s, scal, noise, n_frames: int):
         """`_fused_impl` run eagerly (the CPU path, and the reference a
         graph's replay is held against)."""
-        self.phase2_calls += 1
+        self._count_eval()
         return self._fused_impl(tokens, mask, s, scal, noise, n_frames)
 
     # ------------------------------------------------------------------
@@ -419,44 +447,122 @@ class StyleTTS2:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def _capture_fused(self, tb: int, fb: int) -> _FusedGraph:
+    def _capture_fused(self, tb: int, fb: int,
+                       background: bool = False) -> _FusedGraph:
         """Capture `_fused_impl` at batch 1 on (tb, fb) into a CUDA graph
-        after one eager warm-up call on a side stream (cuDNN plans, kernel
-        loads). Every graph allocates from one shared pool: replays run one
-        at a time on one stream and each replay's outputs are copied to the
-        host and synced before the next, so a graph may reuse what another
-        holds. A failed capture raises: there is no eager fallback."""
+        after one eager warm-up call (cuDNN plans, kernel loads, cached
+        constants), both on a side stream, in thread-local capture mode:
+        another thread may launch, allocate and sync on its own streams
+        meanwhile without breaking or joining the capture. The graph's
+        launch counts are the capturing thread's alone
+        (launch_count.recording). Captures run one at a time (a lock).
+
+        Every graph allocates from one shared pool. A capture may reuse a
+        block another graph uses while it replays, which is safe because a
+        capture runs no kernel, and replays run one at a time on the
+        serving thread's stream, each synced before the next. background:
+        the caller is the capture thread, so the device-wide memory stats
+        (and the sync and cache release that isolate them) are skipped. A
+        failed capture raises: there is no eager fallback."""
         dev = self.device
-        inputs = dict(
-            tokens=torch.zeros(1, tb, dtype=torch.int64, device=dev),
-            mask=torch.ones(1, tb, dtype=torch.bool, device=dev),
-            s=torch.zeros(1, self.cfg.model_params.style_dim, device=dev),
-            scal=torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0], device=dev),
-            noise=torch.zeros(1, tb, device=dev))
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._fused(**inputs, n_frames=fb)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        allocated = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        counts = {fn.__name__: fn.launches for fn in _KERNELS}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            pcm, total = self._fused_impl(**inputs, n_frames=fb)
-        if self._graph_pool is None:
-            self._graph_pool = graph.pool()
-        g = _FusedGraph(
-            graph, inputs, pcm, total,
-            launches={fn.__name__: fn.launches - counts[fn.__name__]
-                      for fn in _KERNELS},
-            peak_bytes=torch.cuda.max_memory_allocated(dev) - allocated,
-            pool_growth_bytes=torch.cuda.memory_reserved(dev) - reserved)
-        self.graphs[(tb, fb)] = g
+        with self._capture_lock:
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                inputs = dict(
+                    tokens=torch.zeros(1, tb, dtype=torch.int64, device=dev),
+                    mask=torch.ones(1, tb, dtype=torch.bool, device=dev),
+                    s=torch.zeros(1, self.cfg.model_params.style_dim,
+                                  device=dev),
+                    scal=torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0],
+                                      device=dev),
+                    noise=torch.zeros(1, tb, device=dev))
+                self._fused(**inputs, n_frames=fb)
+            side.synchronize()
+            if not background:
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                allocated = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            graph = torch.cuda.CUDAGraph()
+            pool = () if self._graph_pool is None else (self._graph_pool,)
+            with torch.cuda.stream(side), LC.recording() as launches:
+                graph.capture_begin(*pool, capture_error_mode="thread_local")
+                try:
+                    pcm, total = self._fused_impl(**inputs, n_frames=fb)
+                finally:
+                    graph.capture_end()
+            if self._graph_pool is None:
+                self._graph_pool = graph.pool()
+            peak = growth = None
+            if not background:
+                peak = torch.cuda.max_memory_allocated(dev) - allocated
+                growth = torch.cuda.memory_reserved(dev) - reserved
+            g = _FusedGraph(graph, inputs, pcm, total, launches=launches,
+                            peak_bytes=peak, pool_growth_bytes=growth,
+                            capture_ms=(time.perf_counter() - t0) * 1e3,
+                            background=background)
+            self.graphs[(tb, fb)] = g
+            self._fused_ready.add((tb, fb))
         return g
+
+    def _enqueue_fused_capture(self, tb: int, fb: int) -> None:
+        """Queue the (tb, fb) pair for the background thread (fused_compile
+        == "async"): on CUDA it captures the pair's graph, on the CPU it
+        runs one eager `_fused` call; then the pair is ready. A failure is
+        kept for `wait_fused_compiles` to raise, and the pair stays on the
+        two-phase path."""
+        key = (tb, fb)
+        if key in self._fused_pending or key in self._fused_ready:
+            return
+        self._fused_pending.add(key)
+        if self._fused_thread is None:
+            self._fused_queue = queue.Queue()
+            self._fused_thread = threading.Thread(
+                target=self._fused_worker, name="fused-capture", daemon=True)
+            self._fused_thread.start()
+        self._fused_queue.put(key)
+
+    def _fused_worker(self) -> None:
+        while True:
+            key = self._fused_queue.get()
+            try:
+                # grad mode and the current device are per thread
+                with torch.inference_mode():
+                    if self.device.type == "cuda":
+                        with torch.cuda.device(self.device):
+                            self._capture_fused(*key, background=True)
+                    else:
+                        tb, fb = key
+                        self._fused(
+                            torch.zeros(1, tb, dtype=torch.int64),
+                            torch.ones(1, tb, dtype=torch.bool),
+                            torch.zeros(1, self.cfg.model_params.style_dim),
+                            torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0]),
+                            torch.zeros(1, tb), n_frames=fb)
+                        self._fused_ready.add(key)
+            except Exception as e:  # the request path keeps serving
+                self._fused_failed.add(key)
+                self._fused_errors.append(e)
+                warnings.warn(f"background fused capture {key} failed: "
+                              f"{e!r}")
+            finally:
+                self._fused_pending.discard(key)
+                self._fused_queue.task_done()
+
+    def wait_fused_compiles(self) -> None:
+        """Block until every queued background capture has finished, then
+        re-raise the first one that failed (its pair stays on the
+        two-phase path)."""
+        if self._fused_queue is not None:
+            self._fused_queue.join()
+        if self._fused_errors:
+            err = self._fused_errors[0]
+            self._fused_errors = []
+            raise RuntimeError(f"a background fused capture failed: "
+                               f"{err!r}") from err
 
     @torch.inference_mode()
     def _replay_fused(self, tokens: np.ndarray, mask: np.ndarray, s,
@@ -476,8 +582,7 @@ class StyleTTS2:
         inp["s"].copy_(self._style_row(s), non_blocking=True)
         g.graph.replay()
         self.graph_replays += 1
-        for name, n in g.launches.items():
-            self.replayed_launches[name] += n
+        LC.add_recorded(g.launches)
         g.pcm_host.copy_(g.pcm, non_blocking=True)
         g.total_host.copy_(g.total, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
@@ -497,7 +602,7 @@ class StyleTTS2:
             split_dur = max(int(split_dur), 1)
         sr = self.sr
         if isinstance(path_or_wave, str):
-            wave, in_sr = AUD.read_wav(path_or_wave)
+            wave, in_sr = AUD.read_audio(path_or_wave)  # WAV or FLAC
             wave = AUD.resample(wave, in_sr, sr)
         else:
             wave = np.asarray(path_or_wave, dtype=np.float32)
@@ -871,6 +976,12 @@ class StyleTTS2:
         if need > fbs[-1]:
             return None
         fb = _bucket(fbs, max(need, 1))
+        if self.fused_compile == "async" and (tb, fb) not in self._fused_ready:
+            # this request takes the two-phase path; the pair's graph is
+            # captured in the background for the next one
+            if (tb, fb) not in self._fused_failed:
+                self._enqueue_fused_capture(tb, fb)
+            return None
         tokens = np.zeros((1, tb), np.int64)
         tokens[0, : len(tk)] = tk
         mask = np.zeros((1, tb), bool)
@@ -896,6 +1007,7 @@ class StyleTTS2:
                 self._style_row(style["style"]), torch.from_numpy(scal),
                 torch.from_numpy(noise), n_frames=fb)
             pcm, total = pcm.numpy(), total.numpy()
+            self._fused_ready.add((tb, fb))
         n = int(total[0])
         if self.fixed_duration is None:
             # the total is the true frame count even on overflow

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -111,10 +112,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return took
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load library `name`, with every exported
-    function's restype and argtypes declared."""
+    function's restype and argtypes declared. Thread-safe: the first call
+    may come from the serving thread and the engine's capture thread at
+    once, and both would write the same temporary file."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
     build([name])
     lib = ctypes.CDLL(str(library_path(name)))
     for fn_name, (restype, argtypes) in SIGNATURES[name].items():

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from styletts2_tpu_torch.ops import launch_count
 from styletts2_tpu_torch.ops import stft as S
 
 TF = 64  # frequency tile of csrc/mel.cu: the bases are padded to a multiple
@@ -121,8 +122,5 @@ def _launch(wave: torch.Tensor, sr: int, n_fft: int, win_length: int,
                       rows, n_fft, cos_p.shape[1], n_mels, mean, std, stream)
     if err != 0:
         raise RuntimeError(f"log_mel kernel launch failed: CUDA error {err}")
-    log_mel.launches += 1
+    launch_count.add("log_mel")
     return out.view(b, n_frames, n_mels).transpose(1, 2)
-
-
-log_mel.launches = 0

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -26,18 +27,34 @@ LOG_MEL_MEAN = -4.0
 LOG_MEL_STD = 4.0
 
 
+_CONSTANT_LOCK = threading.RLock()
+
+
 def cached_constant(fn):
     """functools.lru_cache for tensor constants, each built outside
     inference mode: one first built under torch.inference_mode() (the
     engine's) would be an inference tensor, which autograd refuses to save
-    for a later training step's backward."""
+    for a later training step's backward. Built once under a lock and
+    waited for on the building thread's stream: the engine's capture
+    thread may build a constant on its own stream that the serving thread
+    then reads on another."""
     @functools.lru_cache(maxsize=None)
-    @functools.wraps(fn)
     def build(*args, **kwargs):
         with torch.inference_mode(False):
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if (isinstance(t, torch.Tensor) and t.is_cuda
+                    and not torch.cuda.is_current_stream_capturing()):
+                torch.cuda.current_stream(t.device).synchronize()
+        return out
 
-    return build
+    @functools.wraps(fn)
+    def locked(*args, **kwargs):
+        with _CONSTANT_LOCK:
+            return build(*args, **kwargs)
+
+    locked.cache_clear = build.cache_clear
+    return locked
 
 
 def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int,

@@ -33,6 +33,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from styletts2_tpu_torch.ops import launch_count
+
 # minimax fit of sin^2(r)/r^2 on [0, pi/2], degree 4 in u = r^2 (the TPU
 # kernel's coefficients): max error 4.4e-7, far below bf16's step
 SIN2_COEFFS = (0.9999919530071253, -0.3332866101072116,
@@ -176,10 +178,7 @@ def ada_snake_conv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ada_snake_conv kernel launch failed: CUDA "
                            f"error {err}")
-    ada_snake_conv.launches += 1
+    launch_count.add("ada_snake_conv")
     if not out_stats:
         return out
     return out, stats.sum(dim=-1)
-
-
-ada_snake_conv.launches = 0

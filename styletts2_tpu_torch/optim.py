@@ -9,11 +9,14 @@ update; both give p - lr * (wd * p + m_hat / (sqrt(v_hat) + eps)). The
 reference builds a OneCycleLR it never steps, constant in its config:
 `onecycle_lr` gives the schedule, the optimizers run at constant lr.
 
-States leave and enter the port as numpy trees in the JAX param layout:
+States leave the port as numpy trees in the JAX param layout:
 {module: {"count": int, "mu": tree, "nu": tree}} (Adam's first and second
-moments under the parameters' own keys). The JAX package pickles optax's
-named tuples instead, which only JAX can read; the two layouts are not
-interchangeable, the parameters are.
+moments under the parameters' own keys). They enter in that layout or in
+the JAX package's: per module optax.adamw's chain state, a tuple whose
+ScaleByAdamState holds the same count / mu / nu (read without optax
+through checkpoint._Unpickler's stand-ins). The JAX package reads only
+optax's objects, so it resumes a port checkpoint's weights and counters
+with `load_only_params: true`, not its optimizer.
 """
 
 from __future__ import annotations
@@ -101,18 +104,53 @@ class MultiOptimizer:
         return out
 
     def load_state_trees(self, trees: Mapping[str, Any]) -> None:
-        """Restore what `state_trees` wrote (modules absent from `trees`
-        keep a fresh state)."""
+        """Restore per-module AdamW states (modules absent from `trees`
+        keep a fresh state), from `state_trees`' layout or from a JAX
+        checkpoint's optax chain state (see `adam_moments`): count ->
+        step, mu -> exp_avg, nu -> exp_avg_sq, matched by the parameter's
+        state-dict name. Every parameter must have its moments. A moment
+        leaf that names no parameter (a buffer, e.g. BatchNorm's running
+        stats, which torch's optimizer does not train) is dropped when it
+        is zero and raises when it is not: it would be training state the
+        port cannot carry."""
         for key, mod in self.modules.items():
             if key not in trees:
                 continue
-            st = trees[key]
-            if int(st["count"]) == 0:
+            count, mu_tree, nu_tree = adam_moments(trees[key])
+            if count == 0:
                 continue
-            mu = W.tree_to_state_dict(st["mu"], fuse=False)
-            nu = W.tree_to_state_dict(st["nu"], fuse=False)
-            for name, p in mod.named_parameters():
+            mu = W.tree_to_state_dict(mu_tree, fuse=False)
+            nu = W.tree_to_state_dict(nu_tree, fuse=False)
+            params = dict(mod.named_parameters())
+            missing = sorted(set(params) - set(mu))
+            if missing:
+                raise KeyError(f"optimizer state of {key} has no moments "
+                               f"for {missing}")
+            for name in sorted(set(mu) - set(params)):
+                if mu[name].any() or nu[name].any():
+                    raise ValueError(
+                        f"optimizer state of {key}: nonzero moments at "
+                        f"{name}, which is not a parameter of the module")
+            for name, p in params.items():
                 self.opts[key].state[p] = {
-                    "step": torch.tensor(float(st["count"])),
+                    "step": torch.tensor(float(count)),
                     "exp_avg": mu[name].to(p.device),
                     "exp_avg_sq": nu[name].to(p.device)}
+
+
+def adam_moments(state: Any):
+    """(count, mu tree, nu tree) of one module's optimizer state: the port's
+    {"count", "mu", "nu"} dict, or optax.adamw's chain state (a tuple whose
+    one element with count / mu / nu is scale_by_adam's; the decay and lr
+    stages hold nothing)."""
+    if isinstance(state, Mapping):
+        return int(state["count"]), state["mu"], state["nu"]
+    if isinstance(state, (tuple, list)):
+        adam = [s for s in state
+                if all(hasattr(s, f) for f in ("count", "mu", "nu"))]
+        if len(adam) == 1:
+            s = adam[0]
+            return int(np.asarray(s.count)), s.mu, s.nu
+    raise TypeError(f"unknown optimizer state layout: {type(state).__name__}"
+                    " (expected the port's {count, mu, nu} or optax.adamw's"
+                    " chain state)")

@@ -11,11 +11,11 @@ C_out) in the decoder dtype). A training build keeps the pairs as
 parameters (AdamW on g and v is not AdamW on the fused weight):
 `split_weight_norm`, then `load_param_tree(..., fuse=False)`;
 `module_tree` writes a module back as a numpy tree in the JAX layout.
+Reference .pth files go through convert.py.
 """
 
 from __future__ import annotations
 
-import pickle
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -116,11 +116,13 @@ def load_param_tree(engine_or_modules, tree: Mapping[str, Any],
 
 
 def load_checkpoint_net(path: str) -> Dict[str, Any]:
-    """The `net` ({module: numpy tree}) of a native `.ckpt` checkpoint.
-    Unpickling runs code: load only checkpoints this project wrote."""
-    with open(path, "rb") as f:
-        state = pickle.load(f)
-    return state["net"]
+    """The `net` ({module: numpy tree}) of a native checkpoint (the port's
+    or the JAX package's, optimizer state and all, with no optax or jax
+    import) or of a reference .pth (checkpoint.load_checkpoint).
+    Unpickling runs code: load only trusted checkpoints."""
+    from styletts2_tpu_torch.checkpoint import load_checkpoint
+
+    return load_checkpoint(path)["net"]
 
 
 def init_random(modules: nn.Module, generator: torch.Generator) -> None:

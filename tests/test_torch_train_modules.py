@@ -22,6 +22,7 @@ from styletts2_tpu_torch import weights as W
 from styletts2_tpu_torch.nn import asr as ASR
 from styletts2_tpu_torch.nn import discriminators as DISC
 from styletts2_tpu_torch.nn import jdc as JDC
+from styletts2_tpu_torch.ops import launch_count
 from styletts2_tpu_torch.ops import align as ALN
 from styletts2_tpu_torch.ops import mel_kernel as MK
 from styletts2_tpu_torch.ops import stft as S
@@ -294,7 +295,6 @@ def test_ada_snake_conv_is_inference_only():
     """B1's wrapper raises when asked to build a graph, naming the training
     route; under no_grad / inference_mode (the engine) it runs as before."""
     from styletts2_tpu_torch.nn import blocks as TB
-    from styletts2_tpu_torch.ops import vocoder_kernel as VK
 
     blk = TB.AdaINResBlock1(32, 3, (1, 3), 16)
     blk.prepack(torch.float32)
@@ -312,10 +312,10 @@ def test_ada_snake_conv_is_inference_only():
                                       ref.numpy())
     # the plain route (no mask, no n_valid) differentiates and never
     # reaches the wrapper
-    calls = VK.ada_snake_conv.launches
+    calls = launch_count.get("ada_snake_conv")
     blk(x, s).sum().backward()
     assert blk.convs1[0].weight.grad is not None
-    assert VK.ada_snake_conv.launches == calls
+    assert launch_count.get("ada_snake_conv") == calls
 
 
 @pytest.mark.parametrize("f_idx,n_idx", [(0, 0), (1, 2), (2, 3)])
