@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (styletts2_tpu_torch) on one NVIDIA GPU and
 check it.
 
-    python3 chip_smoke.py [--json PATH] [--b1-only] [--package-from DIR]
+    python3 chip_smoke.py [--json PATH] [--b1-only] [--deploy-only]
+                          [--slm-only] [--package-from DIR]
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit; torch and CUDA versions);
@@ -54,7 +55,9 @@ Phases, each printed on its own line:
      fused graph, the fused graph against the two-phase path, and
      generate_batch on eight texts gated per row at twice this decoder's
      phase2_spread, with B1 counted per window (48 launches per phase-2
-     evaluation for iSTFTNet, none for Vocos); for iSTFTNet, B1 against
+     evaluation for iSTFTNet, none for Vocos); for iSTFTNet the spread
+     after each generator stage (istft_stages) and with the generator in
+     f32 (what amplifies the batch-8-vs-1 spread?), B1 against
      its plain version at its stage shapes at frame bucket 256 (C 256 at
      T 5120 and C 128 at the odd T 30721; f32 and bf16; valid prefix
      before T and at T; with and without the residual and stats) and
@@ -74,11 +77,22 @@ Phases, each printed on its own line:
      the capture's wall time and recorded B1 count (== b1_per_eval), the
      same request through the graph (equal length), /tts_batch on the
      eight texts == generate_batch row by row (1/RTF);
- 10. the kernels line (JSON), the card line, and the result line.
+ 10. the SLM (WavLM) adversarial stage ("[10 slm]", f32, TF32 off):
+     full-width wavlm-base-plus on CUDA against the CPU (seeded weights,
+     3 s of 16 kHz audio), its HF-layout state dict loaded through
+     slmadv_params.wavlm_path (bit for bit), one round at the small
+     config on CUDA against the CPU (draws fixed; cuDNN off gated, on
+     reported), train_loop.main with the stage on at full width on phase
+     7's workspace (a round every 2 steps: each round's generator and
+     discriminator ms, B2 once and B1 never, the modules it moved, peak
+     memory), one round each of iSTFTNet and Vocos at full width, and the
+     refusal without WavLM weights;
+ 11. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
-`--b1-only` stops after phase 3, `--deploy-only` runs phase 9 alone (on
-a fresh phase-7 workspace); with `--package-from DIR` the package
+`--b1-only` stops after phase 3, `--deploy-only` runs phase 9 alone and
+`--slm-only` phase 10 alone (each on a fresh phase-7 workspace); with
+`--package-from DIR` the package
 (kernels, wrappers, config) comes from the checkout in DIR, so two commits'
 B1 kernels are timed by the same code in one run.
 """
@@ -86,6 +100,7 @@ B1 kernels are timed by the same code in one run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -585,7 +600,7 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
 
 
-def phase2_spread(engine, text: str, style):
+def phase2_spread(engine, text: str, style, probes: bool = True):
     """What one phase-2 call moves on this device when only its batch or
     frame bucket changes: one text's phase 2 on identical inputs at batch 1
     on its frame bucket (the reference), at the next frame bucket and at
@@ -596,9 +611,9 @@ def phase2_spread(engine, text: str, style):
     and with cuDNN off (is either of them what moves?); for iSTFTNet also
     with one source STFT, batch 1's, fed to both runs through
     ISTFTNetGenerator.source_features (is the source's branch-cut phase
-    what moves?)."""
-    import contextlib
-
+    what moves?), and batch 8's row 0 against batch 1 after each stage of
+    the generator (istft_stages: which stage amplifies?). probes=False:
+    the buckets and batch 8 only."""
     import torch
     from styletts2_tpu_torch.infer import _bucket
     from styletts2_tpu_torch.ops import vocoder_kernel as VK
@@ -634,12 +649,33 @@ def phase2_spread(engine, text: str, style):
         (asr1, f0_1, n_1, m1), ref = run(1, fb)
         _, nxt = run(1, fbs[fbs.index(fb) + 1])
         (_, f0_8, n_8, _), b8 = run(8, fb)
-        fed = e._decode(asr1, f0_8[:1], n_8[:1], s, m1)[0, :n].float()
         out = dict(frames=frames, frame_bucket=fb,
-                   next_bucket=rel_l2(nxt, ref), batch8=rel_l2(b8, ref),
-                   f0=rel_l2(f0_8[0].float().cpu().numpy(),
+                   next_bucket=rel_l2(nxt, ref), batch8=rel_l2(b8, ref))
+        if not probes:
+            return out
+        fed = e._decode(asr1, f0_8[:1], n_8[:1], s, m1)[0, :n].float()
+        out.update(f0=rel_l2(f0_8[0].float().cpu().numpy(),
                              f0_1[0].float().cpu().numpy()),
                    decoder_fed_batch8_f0n=rel_l2(fed.cpu().numpy(), ref))
+        dc = e.cfg.model_params.decoder
+        if dc.type == "istftnet":
+            gen = e.modules["decoder"].generator
+            n_up, n_k = len(dc.upsample_rates), len(dc.resblock_kernel_sizes)
+
+            def staged(b):
+                got = []
+                hook = gen.register_forward_hook(
+                    lambda mod, args, o: got.append(o))
+                try:
+                    with istft_taps(dc.gen_istft_n_fft) as rec:
+                        run(b, fb)
+                finally:
+                    hook.remove()
+                return istft_stages(rec, n_up, n_k, dc.gen_istft_n_fft,
+                                    got[-1])
+
+            out["stages"], out["first_amplifying_stage"] = stage_moves(
+                staged(8), staged(1), frames / fb)
 
         @contextlib.contextmanager
         def plain_b1():
@@ -681,6 +717,97 @@ def phase2_spread(engine, text: str, style):
         return out
 
 
+ISTFT_STAGE_AMPLIFIES = 3.0  # a stage that moves > 3x its input's move
+
+
+@contextlib.contextmanager
+def istft_taps(n_fft: int):
+    """Record what ISTFTNetGenerator's stages compute while the block runs:
+    every `layers.conv_transpose1d` output (the upsamples), every
+    AdaINResBlock1 output (per stage the noise_res block, then the
+    resblocks) and every conv output with n_fft + 2 channels (conv_post).
+    `istft_stages` names them."""
+    from styletts2_tpu_torch.nn import blocks as NB
+    from styletts2_tpu_torch.nn import layers as NL
+
+    rec = {"up": [], "block": [], "post": []}
+    conv_t, conv = NL.conv_transpose1d, NL.conv1d
+    fwd = NB.AdaINResBlock1.forward
+
+    def tap_conv_t(mod, x):
+        rec["up"].append(conv_t(mod, x))
+        return rec["up"][-1]
+
+    def tap_conv(mod, x):
+        y = conv(mod, x)
+        if y.shape[-1] == n_fft + 2:
+            rec["post"].append(y)
+        return y
+
+    def tap_block(self, *a, **kw):
+        rec["block"].append(fwd(self, *a, **kw))
+        return rec["block"][-1]
+
+    NL.conv_transpose1d, NL.conv1d = tap_conv_t, tap_conv
+    NB.AdaINResBlock1.forward = tap_block
+    try:
+        yield rec
+    finally:
+        NL.conv_transpose1d, NL.conv1d = conv_t, conv
+        NB.AdaINResBlock1.forward = fwd
+
+
+def istft_stages(rec, n_up: int, n_k: int, n_fft: int, out):
+    """{stage: (B, T, C) f32 numpy} in the generator's order from one
+    `istft_taps` record (the last generator call's): up{i}, the upsample's
+    output; res{i}, the stage's resblock sum / n_k; logmag and phase,
+    conv_post's halves before the f32 cast; exp of the magnitude; sin of
+    the phase; istft, the output `out`; pcm, `out` clipped to [-1, 1] as
+    the engine clips it before the int16 cast."""
+    def np32(t):
+        return t.detach().float().cpu().numpy()
+
+    blocks = rec["block"][-n_up * (1 + n_k):]
+    st = {}
+    for i, up in enumerate(rec["up"][-n_up:]):
+        st[f"up{i}"] = np32(up)
+        rbs = blocks[i * (1 + n_k) + 1: (i + 1) * (1 + n_k)]
+        st[f"res{i}"] = np32(sum(r.float() for r in rbs) / n_k)
+    post = rec["post"][-1]
+    half = n_fft // 2 + 1
+    st["logmag"], st["phase"] = np32(post[..., :half]), np32(post[..., half:])
+    st["exp"] = np.exp(st["logmag"])
+    st["sin"] = np.sin(st["phase"])
+    st["istft"] = np32(out)
+    st["pcm"] = np.clip(st["istft"], -1.0, 1.0)  # the engine's int16 clip
+    return st
+
+
+# each stage of istft_stages and the stage it reads (exp and sin read
+# conv_post's halves; the iSTFT reads both)
+STAGE_INPUTS = {"res0": ("up0",), "up1": ("res0",), "res1": ("up1",),
+                "logmag": ("res1",), "phase": ("res1",), "exp": ("logmag",),
+                "sin": ("phase",), "istft": ("exp", "sin"),
+                "pcm": ("istft",)}
+
+
+def stage_moves(a, b, frac: float):
+    """rel-l2 of row 0 of each stage of `a` against `b` over its valid
+    prefix (ceil(rows * frac) rows, frac = valid / bucket frames), and the
+    first stage that moves more than ISTFT_STAGE_AMPLIFIES x the larger
+    move of the stages it reads (STAGE_INPUTS; not counted after stages
+    that did not move at all)."""
+    moves = {}
+    for k in a:
+        n = int(np.ceil(a[k].shape[1] * frac))
+        moves[k] = rel_l2(a[k][0, :n], b[k][0, :n])
+    first = next((k for k, ins in STAGE_INPUTS.items()
+                  if k in moves and all(i in moves for i in ins)
+                  and 0 < ISTFT_STAGE_AMPLIFIES * max(moves[i] for i in ins)
+                  < moves[k]), None)
+    return moves, first
+
+
 def spread_line(sp) -> str:
     return (f"one text's phase 2 on identical inputs ({sp['frames']} frames,"
             f" bucket {sp['frame_bucket']}): next bucket rel-l2 "
@@ -693,7 +820,12 @@ def spread_line(sp) -> str:
                if "batch8_shared_source" in sp else "")
             + f"); batch 8's F0 vs batch 1's "
             f"{sp['f0']:.3g}, the decoder at batch 1 fed batch 8's F0/N "
-            f"{sp['decoder_fed_batch8_f0n']:.3g}")
+            f"{sp['decoder_fed_batch8_f0n']:.3g}"
+            + (f"; batch 8's row vs batch 1 after each generator stage "
+               + ", ".join(f"{k} {v:.3g}" for k, v in sp["stages"].items())
+               + f" (first stage > {ISTFT_STAGE_AMPLIFIES:g}x the stages it "
+               f"reads: {sp['first_amplifying_stage']})" if "stages" in sp
+               else ""))
 
 
 def style_clip(sr: int) -> np.ndarray:
@@ -1554,6 +1686,20 @@ def phase_decoder(chk: Checks, root: Path, card: str, dec_type: str,
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    if dec_type == "istftnet":
+        # the same spread with the generator in f32 (is it bf16's?)
+        engine = StyleTTS2(cfg, seed=0, decoder_dtype="float32")
+        engine.duration_scale = DURATION_SCALE
+        sp32 = phase2_spread(engine, texts[0], style, probes=False)
+        out["batch"]["spread_f32"] = sp32
+        print(f"{tag} f32 generator, one text's phase 2 on identical inputs "
+              f"({sp32['frames']} frames, bucket {sp32['frame_bucket']}): "
+              f"next bucket rel-l2 {sp32['next_bucket']:.3g}, batch 8 "
+              f"{sp32['batch8']:.3g} (bf16: {spread['next_bucket']:.3g}, "
+              f"{spread['batch8']:.3g}) | {card}", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
     if dec_type == "istftnet":
         out["b1"] = phase_b1_decoder(chk, cfg, 256, tag)
@@ -2022,6 +2168,411 @@ def phase_deploy(chk: Checks, root: Path, card: str, train_cfg: Path,
     return out
 
 
+# phase 10: the SLM adversarial stage. WavLM on CUDA vs the CPU in f32
+# (TF32 off): summation order only
+WAVLM_REL = 1e-3
+SLM_ITER = 2  # train_loop's SLM round after every 2nd step of an epoch
+
+
+def seed_workspace(root: Path) -> Path:
+    """Phase 7's workspace and seed checkpoint (seeded random weights),
+    for a run that skips phase 7. Returns the config's path."""
+    import torch
+
+    from styletts2_tpu_torch import weights as W
+    from styletts2_tpu_torch.checkpoint import save_checkpoint
+    from styletts2_tpu_torch.config import load_config
+    from styletts2_tpu_torch.models import build_model
+
+    ws = root / "build" / "train_smoke"
+    cfg_path = train_workspace(ws, root / "configs" / "config_example.yaml")
+    mods = build_model(load_config(str(cfg_path)).model_params)
+    W.init_random(mods, torch.Generator().manual_seed(0))
+    W.split_weight_norm(mods)
+    save_checkpoint(str(ws / "seed.ckpt"), mods)
+    return cfg_path
+
+
+def hf_layout(wavlm):
+    """A WavLM's state dict as HF WavLMModel stores it: the positional
+    conv's weight in the parametrized weight-norm keys (g = its norm over
+    dims 0 and 1, v = the weight) and masked_spec_embed."""
+    import torch
+
+    sd = dict(wavlm.state_dict())
+    w = sd.pop("encoder.pos_conv_embed.conv.weight")
+    key = "encoder.pos_conv_embed.conv.parametrizations.weight."
+    sd[key + "original0"] = torch.sqrt((w * w).sum(dim=(0, 1), keepdim=True))
+    sd[key + "original1"] = w
+    sd["masked_spec_embed"] = torch.zeros(w.shape[0])
+    return sd
+
+
+class SLMRounds:
+    """Wraps SLMAdversarialTrainer.step while open: each round's ms of the
+    generator and discriminator steps (a train.PhaseTimes), its kernel
+    launches, and which modules it moved (the loop's modules, the head and
+    WavLM)."""
+
+    def __init__(self):
+        from styletts2_tpu_torch.nn import slm as SLM
+
+        self.cls, self.step, self.rounds = SLM.SLMAdversarialTrainer, None, []
+
+    def __enter__(self):
+        import torch
+
+        from styletts2_tpu_torch.train import PhaseTimes
+
+        self.step = step = self.cls.step
+        rounds = self.rounds
+
+        def recorded(trainer, mods, *a, **kw):
+            now = {**mods, "wavlm_d": trainer.wl.wd,
+                   "wavlm": trainer.wl.wavlm}
+            snap = {k: [p.detach().clone() for p in m.parameters()]
+                    for k, m in now.items()}
+            before = launches()
+            times = PhaseTimes(next(trainer.wl.wd.parameters()).device)
+            out = step(trainer, mods, *a, times=times, **kw)
+            counts = {k: v - before[k] for k, v in launches().items()}
+            moved = {k for k, m in now.items() if any(
+                not torch.equal(x, q)
+                for x, q in zip(snap[k], m.parameters()))}
+            grads = {k for k, m in now.items()
+                     if any(q.grad is not None for q in m.parameters())}
+            rounds.append(dict(ms=dict(times.ms), launches=counts,
+                               moved=sorted(moved), grads=sorted(grads),
+                               losses={k: float(v) for k, v in out.items()}))
+            return out
+
+        self.cls.step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.step
+
+
+def check_round(chk: Checks, r, what: str) -> None:
+    """One round: B2 once (the style mel), B1 never, finite losses, moved
+    predictor, decoder and the head only, no .grad left."""
+    chk.check(r["launches"] == dict(b1=0, b2=1), f"{what} launches "
+              f"{r['launches']} (want B2 1, B1 0)")
+    chk.check(all(np.isfinite(v) for v in r["losses"].values()),
+              f"{what} losses finite {r['losses']}")
+    chk.check(r["moved"] == ["decoder", "predictor", "wavlm_d"],
+              f"{what} moved {r['moved']} (want decoder, predictor, "
+              "wavlm_d)")
+    chk.check(not r["grads"], f"{what} left .grad on {r['grads']}")
+
+
+def round_line(r) -> str:
+    return (f"generator step {r['ms']['slm_g']:.1f} ms, discriminator step "
+            f"{r['ms']['slm_d']:.1f} ms; launches {r['launches']}; slm_g "
+            f"{r['losses']['slm_g']:.4g}, slm_d {r['losses']['slm_d']:.4g}; "
+            f"moved {', '.join(r['moved'])}")
+
+
+def slm_round_parts(cfg, mods, wavlm, wd, nb, crop, source, dev,
+                    cudnn=True, at=None):
+    """One SLM round of `mods` on `dev` (copies), split as
+    tests/test_torch_slm.py splits it: the generator and discriminator
+    steps' losses, the head's gradients and the end-to-end gradients of
+    predictor and decoder; the decoder's inputs (asr, F0, N, style, frame
+    mask) and the cotangents its loss sends back; then, at `at` (another
+    run's result, or this run's when None), the decoder's gradients and
+    input cotangents at that run's decoder inputs and the predictor's
+    gradients pulled back along that run's cotangents. All on the CPU."""
+    import copy
+
+    import torch
+
+    from styletts2_tpu_torch import losses as LO
+    from styletts2_tpu_torch.nn import slm as SLM
+    from styletts2_tpu_torch.optim import MultiOptimizer
+
+    m = copy.deepcopy(mods).to(dev)
+    tr = SLM.SLMAdversarialTrainer(cfg, MultiOptimizer(m), LO.WavLMLoss(
+        copy.deepcopy(wavlm).to(dev), copy.deepcopy(wd).to(dev)))
+    texts, lens, waves = (torch.as_tensor(a).to(dev) for a in
+                          (nb.texts, nb.input_lengths, nb.waves))
+    src = tuple(t.to(dev) for t in source)
+
+    def flat(ts):
+        return torch.cat([t.flatten() for t in ts]).cpu()
+
+    out = {}
+    with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+        seen, got = [], {}
+
+        def keep(mod, args):
+            seen.extend(args[:5])
+            for i in range(3):
+                args[i].register_hook(lambda g, i=i: got.__setitem__(i, g))
+
+        hook = m["decoder"].register_forward_pre_hook(keep)
+        g_loss, y, g = tr.generator_grads(m, texts, lens, waves, crop, src)
+        hook.remove()
+        d_loss, d = tr.discriminator_grads(waves, y, crop)
+        out.update(losses=dict(slm_g=float(g_loss), slm_d=float(d_loss)),
+                   wavlm_d=flat(d), end_to_end={k: flat(v) for k, v in
+                                                g.items()},
+                   dec_in=[t.detach().cpu() for t in seen],
+                   cots=[got[i].cpu() for i in range(3)])
+        at = at or out
+        ins = [t.to(dev).requires_grad_(i < 3)
+               for i, t in enumerate(at["dec_in"])]
+        loss = tr.wl.generator(m["decoder"](*ins, src)[..., 0]) * tr.scale
+        params = list(m["decoder"].parameters())
+        gs = torch.autograd.grad(loss, params + ins[:3])
+        out["decoder"] = flat(gs[: len(params)])
+        out["dec_cots"] = [t.cpu() for t in gs[len(params):]]
+        seen.clear()
+        hook = m["decoder"].register_forward_pre_hook(
+            lambda mod, args: seen.extend(args[:3]))
+        tr.loss.generator_step(m, texts, lens, tr.style(m, waves), crop, src)
+        hook.remove()
+        params = list(m["predictor"].parameters())
+        gs = torch.autograd.grad(seen, params, [c.to(dev) for c in at["cots"]],
+                                 allow_unused=True)
+        out["predictor"] = flat([torch.zeros_like(p) if x is None else x
+                                 for p, x in zip(params, gs)])
+    return out
+
+
+def phase_slm(chk: Checks, root: Path, card: str, cfg_path: Path, windows):
+    """The SLM (WavLM) adversarial stage. Full-width wavlm-base-plus on
+    CUDA against the CPU on 3 s of 16 kHz audio (f32, seeded weights);
+    its HF-layout state dict (parametrized positional-conv keys) loaded
+    through slmadv_params.wavlm_path; one round at the small config on
+    CUDA against the CPU (draws fixed; cuDNN off gated, on reported; split
+    at the decoder's input as tests/test_torch_slm.py splits it);
+    train_loop.main with the stage on at full width on phase 7's
+    workspace (allow_random_wavlm, a round every SLM_ITER steps: each
+    round's ms, launches and moved modules, peak memory); one round each
+    of iSTFTNet and Vocos at full width on that run's first batch; the
+    refusal without WavLM weights. Adds its windows to `windows`."""
+    import copy
+    import types
+
+    import torch
+    import yaml
+
+    from styletts2_tpu_torch import train_loop
+    from styletts2_tpu_torch import weights as W
+    from styletts2_tpu_torch.config import load_config, with_decoder_type
+    from styletts2_tpu_torch.data.loader import bin_crop_frames, collate
+    from styletts2_tpu_torch.models import build_inference_modules
+    from styletts2_tpu_torch.nn import slm as SLM
+    from styletts2_tpu_torch.nn import wavlm as WL
+    from styletts2_tpu_torch.nn.discriminators import WavLMDiscriminator
+    from styletts2_tpu_torch.ops import launch_count as LC
+    from styletts2_tpu_torch.optim import MultiOptimizer
+    from styletts2_tpu_torch.train import Batch
+
+    tag = "[10 slm]"
+    out = {}
+    ws = cfg_path.parent
+    base = yaml.safe_load(cfg_path.read_text())
+
+    # full-width WavLM, CUDA vs CPU
+    wavlm = WL.WavLM().init_random(torch.Generator().manual_seed(7))
+    wavlm.eval().requires_grad_(False)
+    n_params = sum(p.numel() for p in wavlm.parameters())
+    wav = torch.from_numpy(style_clip(16000)[:48000][None].copy())
+    with torch.no_grad():
+        want, cpu_s = timed(lambda: wavlm(wav))
+        gpu = copy.deepcopy(wavlm).cuda()
+        gpu(wav.cuda())  # warm-up
+        got, gpu_s = timed(lambda: gpu(wav.cuda()))
+    rels = [rel_l2(a.cpu().numpy(), b.numpy()) for a, b in zip(got, want)]
+    chk.check(len(got) == 13 and max(rels) < WAVLM_REL,
+              f"{tag} WavLM CUDA vs CPU hidden states rel-l2 {rels}")
+    print(f"{tag} wavlm-base-plus ({n_params} parameters, seeded) on 3 s of "
+          f"16 kHz audio: {tuple(got[-1].shape)} x {len(got)} hidden states; "
+          f"CUDA {gpu_s * 1e3:.1f} ms, CPU {cpu_s * 1e3:.1f} ms; rel-l2 per "
+          f"hidden state CUDA vs CPU {', '.join(f'{r:.2e}' for r in rels)} "
+          f"(bound {WAVLM_REL:g}) | {card}", flush=True)
+    out["wavlm_cuda_vs_cpu"] = rels
+
+    # its HF-layout state dict through slmadv_params.wavlm_path
+    path = ws / "wavlm_hf.pt"
+    torch.save(hf_layout(wavlm), path)
+    cfg = load_config(dict(base, slmadv_params=dict(
+        enabled=True, wavlm_path=str(path))))
+    # on the CPU, where the forward is deterministic
+    tr = SLM.build_trainer(cfg, MultiOptimizer({}), "cpu")
+    direct = WL.WavLM()
+    direct.load_hf_state_dict(torch.load(path, weights_only=True))
+    direct.eval()
+    with torch.no_grad():
+        a, b = tr.wl.wavlm(wav), direct(wav)
+    same_w = all(torch.equal(v, direct.state_dict()[k])
+                 for k, v in tr.wl.wavlm.state_dict().items())
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    writer = max(rel_l2(x.numpy(), y.numpy()) for x, y in zip(a, want))
+    chk.check(same_w and same, f"{tag} WavLM from wavlm_path == "
+              "load_hf_state_dict of the same file, bit for bit")
+    print(f"{tag} wavlm_path ({path.stat().st_size / 2 ** 20:.1f} MiB, "
+          f"parametrized positional-conv keys) through build_trainer: "
+          f"weights and hidden states (CPU) equal bit for bit to "
+          f"load_hf_state_dict's {same_w and same}; vs the writer's (its "
+          f"weight norm split and fused again) max rel-l2 {writer:.2e}",
+          flush=True)
+    del tr, direct, gpu, a, b, got
+    torch.cuda.empty_cache()
+
+    # one round at the small config, CUDA vs CPU, draws fixed
+    raw = copy.deepcopy(TRAIN_TINY)
+    raw["slmadv_params"] = {"enabled": True}
+    tcfg = load_config(raw)
+    mods = build_inference_modules(tcfg.model_params)
+    W.init_random(mods, torch.Generator().manual_seed(3))
+    W.split_weight_norm(mods)
+    wd = WavLMDiscriminator()
+    W.init_random(wd, torch.Generator().manual_seed(8))
+    W.split_weight_norm(wd)
+    rng = np.random.default_rng(3)
+    b, t_text, t_mel, crop = 2, 12, 100, 33
+    hop = tcfg.preprocess_params.spect_params.hop_length
+    nb = types.SimpleNamespace(
+        waves=(rng.standard_normal((b, t_mel * hop)) * 0.1).astype(np.float32),
+        texts=rng.integers(4, 170, (b, t_text)),
+        input_lengths=np.array([t_text, t_text - 3]))
+    spf = mods["decoder"].generator.source_samples_per_frame
+    rand_ini = rng.random((b, 9)).astype(np.float32)
+    rand_ini[:, 0] = 0.0
+    source = (torch.from_numpy(rand_ini), torch.from_numpy(
+        rng.standard_normal((b, 2 * crop * spf, 9)).astype(np.float32)))
+    args = (tcfg, mods, wavlm, wd, nb, crop, source)
+    cpu = cpu_chain = slm_round_parts(*args, "cpu")
+    res = {}
+    for name, cudnn in (("without cuDNN", False), ("with cuDNN", True)):
+        c = slm_round_parts(*args, "cuda", cudnn, at=cpu)
+
+        def rel(x, y):
+            return float((x - y).norm() / y.norm())
+
+        r = dict(
+            losses={k: abs(c["losses"][k] - v) / abs(v)
+                    for k, v in cpu["losses"].items()},
+            wavlm_d=rel(c["wavlm_d"], cpu["wavlm_d"]),
+            decoder=rel(c["decoder"], cpu_chain["decoder"]),
+            cotangents=max(rel(x, y) for x, y in zip(c["dec_cots"],
+                                                     cpu_chain["dec_cots"])),
+            predictor=rel(c["predictor"], cpu_chain["predictor"]),
+            end_to_end={k: rel(c["end_to_end"][k], v)
+                        for k, v in cpu["end_to_end"].items()})
+        res[name] = r
+        gated = [r["wavlm_d"], r["decoder"], r["cotangents"], r["predictor"]]
+        chk.check(max(r["losses"].values()) < TRAIN_LOSS_REL,
+                  f"{tag} small round CUDA ({name}) vs CPU losses {r}")
+        if not cudnn:
+            chk.check(max(gated) < TRAIN_GRAD_REL, f"{tag} small round "
+                      f"CUDA without cuDNN vs CPU gradients {r}")
+        print(f"{tag} one round at the small config, CUDA {name} vs CPU "
+              f"(draws fixed): losses rel {r['losses']['slm_g']:.2e} / "
+              f"{r['losses']['slm_d']:.2e} (bound {TRAIN_LOSS_REL:g}); "
+              f"gradients rel-l2 wavlm_d {r['wavlm_d']:.2e}, decoder "
+              f"{r['decoder']:.2e} and its input cotangents "
+              f"{r['cotangents']:.2e} at the CPU's decoder inputs, predictor "
+              f"{r['predictor']:.2e} along the CPU's cotangents ("
+              + (f"bound {TRAIN_GRAD_REL:g}" if not cudnn else "reported")
+              + "); end to end " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in r["end_to_end"].items())
+              + " (reported)", flush=True)
+    out["small_round"] = res
+    del mods, wd
+
+    # train_loop.main with the stage on, full width, phase 7's workspace
+    slm_cfg = ws / "config_slm.yaml"
+    slm_cfg.write_text(yaml.safe_dump(dict(
+        base, log_dir=str(ws / "runs_slm"), save_freq=100,
+        slmadv_params=dict(enabled=True, allow_random_wavlm=True,
+                           iter=SLM_ITER)), allow_unicode=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LC.reset()
+    with SLMRounds() as rec:
+        trainer, wall = timed(lambda: train_loop.main(["-p", str(slm_cfg)]))
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    windows["slm train_loop"] = counts
+    hist, rounds = trainer.history, rec.rounds
+    n_rounds = len(hist) // SLM_ITER
+    chk.check(len(rounds) == n_rounds >= 1, f"{tag} train_loop: "
+              f"{len(rounds)} rounds in {len(hist)} steps")
+    chk.check(counts == dict(b1=0, b2=B2_PER_STEP * len(hist) + B2_PER_EVAL
+                             * len(trainer.evals) + len(rounds)),
+              f"{tag} train_loop launches {counts}")
+    logged = [h["metrics"] for h in hist if "slm_g" in h["metrics"]]
+    chk.check(len(logged) == len(rounds) and all(
+        np.isfinite(m[k]) for m in logged for k in ("slm_g", "slm_d")),
+        f"{tag} slm_g / slm_d logged and finite {logged}")
+    for i, r in enumerate(rounds):
+        check_round(chk, r, f"{tag} train_loop round {i}")
+        print(f"{tag} train_loop round {i} (after step {SLM_ITER * (i + 1)}):"
+              f" {round_line(r)} | {card}", flush=True)
+    print(f"{tag} train_loop.main, HiFi-GAN, batch 5, slmadv iter "
+          f"{SLM_ITER}: {len(hist)} steps, {len(rounds)} rounds, "
+          f"{len(trainer.evals)} eval batches in {wall:.1f} s; launches "
+          f"{counts}; peak allocated {peak:.2f} GiB | {card}", flush=True)
+    out["train_loop"] = dict(steps=len(hist), rounds=rounds, wall_s=wall,
+                             peak_gib=peak, launches=counts)
+    sampler = trainer.train_loader.sampler
+    bin_id = sorted(sampler.time_bins)[0]
+    idx = sampler.time_bins[bin_id][:trainer.cfg.batch_size]
+    batch = Batch.from_numpy(collate(trainer.train_loader.dataset, idx,
+                                     bin_id), "cuda")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one round each of the other decoders at full width on that batch
+    for dec_type in DECODER_TYPES:
+        dcfg = load_config(with_decoder_type(dict(base, slmadv_params=dict(
+            enabled=True, allow_random_wavlm=True)), dec_type))
+        mods = build_inference_modules(dcfg.model_params)
+        W.init_random(mods, torch.Generator().manual_seed(0))
+        W.split_weight_norm(mods)
+        mods.to("cuda").train()
+        tr = SLM.build_trainer(dcfg, MultiOptimizer(mods), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LC.reset()
+        with SLMRounds() as rec:
+            tr.step(mods, batch.texts, batch.input_lengths, batch.waves,
+                    bin_crop_frames(bin_id, dcfg.max_len), gen)
+        windows[f"slm {dec_type}"] = launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        (r,) = rec.rounds
+        check_round(chk, r, f"{tag} {dec_type} round")
+        print(f"{tag} {dec_type} round at full width (batch "
+              f"{batch.waves.shape[0]}, bin {bin_id}): {round_line(r)}; peak "
+              f"allocated {peak:.2f} GiB | {card}", flush=True)
+        out[dec_type] = dict(round=r, peak_gib=peak)
+        del mods, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the refusal without WavLM weights
+    bad = ws / "config_slm_refused.yaml"
+    bad.write_text(yaml.safe_dump(dict(base, log_dir=str(ws / "runs_refused"),
+                                       slmadv_params=dict(enabled=True)),
+                                  allow_unicode=True))
+    try:
+        train_loop.main(["-p", str(bad)])
+        refused = "no error"
+    except RuntimeError as e:
+        refused = str(e)
+    chk.check("requires slmadv_params.wavlm_path" in refused,
+              f"{tag} enabled without WavLM weights: {refused}")
+    print(f"{tag} enabled without wavlm_path or allow_random_wavlm: "
+          f"train_loop raises: {refused[:80]}...", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write the measurements here")
@@ -2029,6 +2580,9 @@ def main() -> int:
                     help="run phases 1-3 only and print no result line")
     ap.add_argument("--deploy-only", action="store_true",
                     help="run phases 1, 2 and 9 only (with phase 7's "
+                    "workspace) and print no result line")
+    ap.add_argument("--slm-only", action="store_true",
+                    help="run phases 1, 2 and 10 only (on a fresh phase-7 "
                     "workspace) and print no result line")
     ap.add_argument("--package-from", metavar="DIR",
                     help="import styletts2_tpu_torch from the checkout in "
@@ -2081,6 +2635,14 @@ def main() -> int:
                 {"card": card, "deploy": deploy, "failed": chk.failed},
                 indent=1))
         return 1 if chk.failed else 0
+    if args.slm_only:
+        slm = phase_slm(chk, root, card, seed_workspace(root), {})
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"card": card, "slm": slm, "failed": chk.failed}, indent=1,
+                default=str))
+        return 1 if chk.failed else 0
     b1 = phase_b1(chk, cfg, frame_bucket=256)
     if args.b1_only:
         if args.json:
@@ -2100,8 +2662,11 @@ def main() -> int:
         decoders[dec_type] = phase_decoder(chk, root, card, dec_type,
                                            workload, windows)
     deploy = phase_deploy(chk, root, card, workload[0], windows)
-    # the main path's launches: every window of phases 5, 7, 8 and 9 (graph
-    # replays counted as the launches they recorded)
+    gc.collect()
+    torch.cuda.empty_cache()
+    slm = phase_slm(chk, root, card, workload[0], windows)
+    # the main path's launches: every window of phases 5, 7, 8, 9 and 10
+    # (graph replays counted as the launches they recorded)
     n_b1 = sum(c["b1"] for c in windows.values())
     n_b2 = sum(c["b2"] for c in windows.values())
 
@@ -2132,7 +2697,7 @@ def main() -> int:
             {"card": card, "kernels": kernels, "b1": b1, "b2": b2,
              "engine": engine_out, "launches": windows,
              "train": train_out, "decoders": decoders, "deploy": deploy,
-             "failed": chk.failed}, indent=1))
+             "slm": slm, "failed": chk.failed}, indent=1, default=str))
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} checks failed: {chk.failed}",
               file=sys.stderr)

@@ -1,6 +1,7 @@
-"""Loss library: multi-resolution mel STFT, LSGAN, feature matching, TPRLS.
+"""Loss library: multi-resolution mel STFT, LSGAN, feature matching, TPRLS,
+and the SLM (WavLM) losses.
 
-Counterpart of styletts2_tpu/losses.py (reference losses.py:7-190). The
+Counterpart of styletts2_tpu/losses.py (reference losses.py:7-252). The
 "STFT" loss is mel-domain (128 mels) with the front end's log
 normalisation, so each resolution is one call of kernel B2 per waveform on
 CUDA (6 per step), differentiable through `ops.mel_kernel.log_mel`. The
@@ -9,7 +10,10 @@ median of TPRLS is torch's lower median, as in the reference.
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
+import torch.nn as nn
 
 from styletts2_tpu_torch.ops import stft as OPS
 
@@ -104,3 +108,52 @@ def discriminator_loss(mpd, msd, y: torch.Tensor,
             + discriminator_adv_loss(ds_r, ds_g)
             + discriminator_tprls_loss(df_r, df_g)
             + discriminator_tprls_loss(ds_r, ds_g))
+
+
+class WavLMLoss:
+    """SLM feature and adversarial losses over a WavLM embedder
+    (nn/wavlm.py; frozen by the caller) and its discriminator head
+    (nn/discriminators.py WavLMDiscriminator). Waveforms arrive at the
+    model's rate and are resampled linearly to the SLM's (24 -> 16 kHz:
+    not an integer ratio, so interpolate_linear's general path)."""
+
+    model_sr, slm_sr = 24000, 16000
+
+    def __init__(self, wavlm: nn.Module, wd: nn.Module):
+        self.wavlm = wavlm
+        self.wd = wd
+
+    def _resample(self, wav: torch.Tensor) -> torch.Tensor:
+        out_len = int(wav.shape[-1] * self.slm_sr / self.model_sr)
+        return OPS.interpolate_linear(wav, out_len)
+
+    @staticmethod
+    def _stack(hiddens: Sequence[torch.Tensor]) -> torch.Tensor:
+        """[(B, L, H)] * n -> (B, L, n * H), the reference's
+        stack(dim=1).transpose(-1, -2).flatten(1, 2) layout."""
+        return torch.cat(list(hiddens), dim=-1)
+
+    def _embed(self, wav: torch.Tensor) -> List[torch.Tensor]:
+        return self.wavlm(self._resample(wav))
+
+    def forward(self, wav: torch.Tensor, y_rec: torch.Tensor) -> torch.Tensor:
+        """Mean |wavlm(wav) - wavlm(y_rec)| summed over the hidden states;
+        wav (B, T) is the detached target."""
+        loss = 0.0
+        for r, g in zip(self._embed(wav.detach()), self._embed(y_rec)):
+            loss = loss + (r - g).abs().mean()
+        return loss
+
+    def generator(self, y_rec: torch.Tensor) -> torch.Tensor:
+        """LSGAN generator loss through the frozen WavLM: gradients reach
+        y_rec (B, T)."""
+        d_out = self.wd(self._stack(self._embed(y_rec)))
+        return torch.square(1.0 - d_out).mean()
+
+    def discriminator(self, wav: torch.Tensor,
+                      y_rec: torch.Tensor) -> torch.Tensor:
+        """LSGAN discriminator loss on (real, synthesized) embeddings, both
+        detached: only the head gets gradients."""
+        d_r = self.wd(self._stack(self._embed(wav.detach())))
+        d_g = self.wd(self._stack(self._embed(y_rec.detach())))
+        return torch.square(1.0 - d_r).mean() + torch.square(d_g).mean()

@@ -130,8 +130,9 @@ def affine_from_stats(mod: L.AdaIN1d, stats: torch.Tensor, s: torch.Tensor,
 class AdaINResBlock1(nn.Module):
     """HiFi-GAN AdaINResBlock1: per dilation d,
     x += conv2(snake(adain2(conv1_d(snake(adain1(x)))))). With a valid
-    prefix (inference) every AdaIN+Snake+conv pair is one kernel-B1 call;
-    without one (training) the plain differentiable formulation runs."""
+    prefix and fused weights (inference) every AdaIN+Snake+conv pair is
+    one kernel-B1 call; with weight norm split (a training build) or
+    without a prefix the plain differentiable formulation runs."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilation: Sequence[int] = (1, 3, 5), style_dim: int = 64):
@@ -179,13 +180,14 @@ class AdaINResBlock1(nn.Module):
         n_valid: (B,) int32 prefix lengths. Given both (inference), kernel
         B1: bf16 fuses the residual add into conv2 and takes the next
         AdaIN's statistics from the kernel's partial sums; f32 keeps
-        two-pass statistics and a separate add. Given neither (the
-        training synthesis, as JAX passes no n_valid there): the plain
-        formulation over the whole length, which autograd differentiates."""
-        if n_valid is None:
-            if mask is not None:
-                raise ValueError("AdaINResBlock1: a mask needs n_valid")
-            return self._plain(x, s)
+        two-pass statistics and a separate add. Without n_valid (the D/G
+        step's synthesis, as JAX passes none there), or with weight norm
+        split (the SLM round's masked synthesis under autograd: JAX gates
+        its kernel on the fused weight): the plain formulation, AdaIN
+        statistics over the mask's valid rows when a mask is given, which
+        autograd differentiates and which never calls B1."""
+        if n_valid is None or "weight_v" in self.convs1[0]._parameters:
+            return self._plain(x, s, mask)
         if not self.packed1:
             raise RuntimeError("AdaINResBlock1.prepack() was not called")
         x = x.contiguous()  # kernel B1 takes dense (B, T, C)
@@ -217,14 +219,16 @@ class AdaINResBlock1(nn.Module):
                 x = xt + x
         return x
 
-    def _plain(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-        """Unmasked AdaIN statistics and plain convs (styletts2_tpu/nn/
-        blocks.py adain_res_block1_apply with mask=None)."""
+    def _plain(self, x: torch.Tensor, s: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """AdaIN statistics over the valid rows of `mask` (all rows when
+        None), each conv's input re-zeroed past them, and plain convs
+        (styletts2_tpu/nn/blocks.py adain_res_block1_apply's XLA branch)."""
         for i in range(len(self.dilation)):
-            xt = L.adain_1d_act(self.adain1[i], x, s, act="snake",
+            xt = L.adain_1d_act(self.adain1[i], x, s, mask, act="snake",
                                 alpha=self.alpha1[i].reshape(-1))
             xt = L.conv1d(self.convs1[i], xt)
-            xt = L.adain_1d_act(self.adain2[i], xt, s, act="snake",
+            xt = L.adain_1d_act(self.adain2[i], xt, s, mask, act="snake",
                                 alpha=self.alpha2[i].reshape(-1))
             x = L.conv1d(self.convs2[i], xt) + x
         return x

@@ -6,12 +6,15 @@ config's decoder type. Inference (a frame mask given, no source draws:
 zero sine phase and zero noise, so the output is deterministic) runs the
 generator with per-stage valid-prefix masks, every AdaINResBlock1 conv
 pair of HiFi-GAN and iSTFTNet through kernel B1 on CUDA (nn/blocks.py).
-Training (no frame mask, as JAX's step passes none) runs the plain
+The D/G step (no frame mask, as JAX's step passes none) runs the plain
 differentiable formulation over the whole crop, with the sine source's
 random phase and noise passed in (`draw_source`; each generator's
 `source_samples_per_frame` sizes them, 0 for Vocos, which has no
-source). The JAX package's 128-lane time folding is a TPU layout and is
-not carried over. Channels-last activations.
+source). The SLM round passes a frame mask to a training build (weight
+norm split): the same per-stage masks, the plain formulation with masked
+AdaIN statistics, differentiable, no B1. The JAX package's 128-lane time
+folding is a TPU layout and is not carried over. Channels-last
+activations.
 """
 
 from __future__ import annotations
@@ -234,8 +237,10 @@ class Decoder(nn.Module):
         """asr (B, F, C) aligned text features at the half-mel rate, in the
         decoder dtype; f0_curve, n (B, 2F) f32 at mel rate; s (B, style) in
         the decoder dtype; frame_mask (B, F) bool valid prefix at the asr
-        rate, or None (training: every frame valid, no kernel B1); source:
-        the sine source's draws (None: zero phase and noise). Returns wav
+        rate (kernel B1 with fused weights; the masked plain route with
+        weight norm split), or None (the D/G step: every frame valid, no
+        kernel B1); source: the sine source's draws (None: zero phase and
+        noise). Returns wav
         (B, 2F * the generator's samples per mel frame, 1)."""
         mel_mask = None
         if frame_mask is not None:

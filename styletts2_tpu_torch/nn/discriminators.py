@@ -1,12 +1,13 @@
 """Waveform discriminators: multi-period (MPD) and multi-resolution
-spectrogram (MSD).
+spectrogram (MSD); the SLM stage's WavLM head.
 
 Counterpart of styletts2_tpu/nn/discriminators.py (reference
-Modules/discriminators.py:11-156). State-dict keys mirror the JAX param
+Modules/discriminators.py:11-187). State-dict keys mirror the JAX param
 trees; every conv is weight-normed (`layers.wn`). NCHW: MPD folds the
 wave to (B, 1, T / period, period), MSD takes |STFT| as (B, 1, frames,
 freq). Each forward returns (real logits, fake logits, real feature maps,
-fake feature maps), lists over the sub-discriminators.
+fake feature maps), lists over the sub-discriminators. The WavLM head
+(`WavLMDiscriminator`) reads stacked WavLM hidden states, channels-last.
 """
 
 from __future__ import annotations
@@ -114,3 +115,25 @@ def _both(discs: nn.ModuleList, y: torch.Tensor, y_hat: torch.Tensor):
         frs.append(fr)
         fgs.append(fg)
     return rs, gs, frs, fgs
+
+
+class WavLMDiscriminator(nn.Module):
+    """The SLM adversarial head (wavlm_d_init / wavlm_d_apply): a 1x1
+    `pre` conv from slm_hidden * slm_layers channels, three k 5 convs each
+    followed by leaky_relu, a k 3 `conv_post`."""
+
+    def __init__(self, slm_hidden: int = 768, slm_layers: int = 13):
+        super().__init__()
+        c = 64
+        self.pre = L.wn(nn.Conv1d(slm_hidden * slm_layers, c, 1))
+        self.convs = nn.ModuleList([
+            L.wn(nn.Conv1d(ci, co, 5, padding=2))
+            for ci, co in ((c, 2 * c), (2 * c, 4 * c), (4 * c, 4 * c))])
+        self.conv_post = L.wn(nn.Conv1d(4 * c, 1, 3, padding=1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, T, slm_hidden * slm_layers) -> logits (B, T)."""
+        x = L.conv1d(self.pre, x)
+        for conv in self.convs:
+            x = L.leaky_relu(L.conv1d(conv, x), LRELU_SLOPE)
+        return L.conv1d(self.conv_post, x).flatten(1)

@@ -1,18 +1,64 @@
-"""Step timing and non-finite loss detection for the trainer.
+"""Step timing, a profiler trace of a window of steps, and non-finite loss
+detection for the trainer.
 
 The port's own copy of styletts2_tpu/profiling.py's `StepTimer` and
 `check_finite`, without the latter's 'skip' action: the check runs after
-the step has applied its updates. The JAX profiler trace has no
-counterpart here: use torch.profiler, as chip_smoke.py does.
+the step has applied its updates. `StepTrace` takes the place of its
+jax.profiler `trace`: a torch.profiler trace of the same steps.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+
+class StepTrace:
+    """A torch.profiler trace (host and, on CUDA, device activity) of the
+    steps first <= i < stop of one epoch, written under `logdir` as the
+    Chrome trace `steps_{first}-{last}.json` when the window closes (or at
+    `close`, when the epoch ends inside it). `begin(i)` / `end(i)` go
+    around step i."""
+
+    def __init__(self, logdir: str, device, first: int = 10, stop: int = 15):
+        self.logdir, self.first, self.stop = logdir, first, stop
+        self.cuda = torch.device(device).type == "cuda"
+        self._prof = None
+        self._last = None
+        self.path: Optional[str] = None
+
+    def begin(self, i: int) -> None:
+        if i != self.first or self.path is not None:
+            return
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.__enter__()
+
+    def end(self, i: int) -> None:
+        if self._prof is None:
+            return
+        self._last = i
+        if i + 1 == self.stop:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        self._prof.__exit__(None, None, None)
+        os.makedirs(self.logdir, exist_ok=True)
+        self.path = os.path.join(self.logdir,
+                                 f"steps_{self.first}-{self._last}.json")
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
 
 
 class StepTimer:

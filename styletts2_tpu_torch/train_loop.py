@@ -8,9 +8,13 @@ updates, loss logging every log_interval (JSONL + TensorBoard events),
 the current_model autosave every 1000 iterations, per-epoch validation
 and epoch checkpoints every save_freq epochs. The losses are fetched from
 the device only at each log_interval (and at an epoch's end), so the
-steps between run without a host sync of the loop's own. Runs on CUDA unless
-`device="cpu"` is passed. Multi-GPU and the SLM adversarial stage are not
-ported yet.
+steps between run without a host sync of the loop's own. With
+`slmadv_params.enabled` the SLM (WavLM) adversarial round (nn/slm.py) runs
+after every `slmadv_params.iter`-th step of an epoch, its `slm_g` / `slm_d`
+in that step's metrics; it needs `wavlm_path` (a local HF WavLMModel state
+dict) or `allow_random_wavlm` (smoke runs only). `--profile-dir` writes a
+torch.profiler trace of steps 10-14 of the first epoch. Runs on CUDA
+unless `device="cpu"` is passed. Multi-GPU is not ported yet.
 
 Usage: python -m styletts2_tpu_torch.train_loop -p configs/config.yaml
 """
@@ -23,11 +27,12 @@ import logging
 import os
 import shutil
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
 logger = logging.getLogger("styletts2_tpu_torch.train")
+PROFILE_STEPS = (10, 15)  # --profile-dir traces first <= i < stop
 
 
 def setup_logging(log_dir: str) -> logging.Handler:
@@ -65,18 +70,22 @@ class MetricsWriter:
 
 class Trainer:
     """What one `main` run built and did: the modules, the optimizer, the
-    loaders, the step functions per duration bin, and a record per train
-    step (`history`: bin, step, metrics, and step_ms, the host's wall ms
-    of the call, which need not cover the device's work) and per eval
-    batch (`evals`)."""
+    loaders, the step functions per duration bin, the SLM trainer (None
+    unless enabled), and a record per train step (`history`: bin, step,
+    metrics, and step_ms, the host's wall ms of the call and of its SLM
+    round, which need not cover the device's work) and per eval batch
+    (`evals`); `trace`, the --profile-dir trace's path."""
 
-    def __init__(self, cfg, modules, opt, train_loader, val_loader, device):
+    def __init__(self, cfg, modules, opt, train_loader, val_loader, device,
+                 slm=None):
         self.cfg = cfg
         self.modules = modules
         self.opt = opt
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = device
+        self.slm = slm
+        self.trace: Optional[str] = None
         self.history: List[Dict[str, Any]] = []
         self.evals: List[Dict[str, float]] = []
         self._train: Dict[int, Any] = {}
@@ -114,14 +123,19 @@ def main(argv=None, device: str = "cuda") -> Trainer:
                                                 save_checkpoint)
     from styletts2_tpu_torch.config import load_config
     from styletts2_tpu_torch.data import build_dataloader
+    from styletts2_tpu_torch.data.loader import bin_crop_frames
     from styletts2_tpu_torch.models import build_model
     from styletts2_tpu_torch.optim import MultiOptimizer
-    from styletts2_tpu_torch.profiling import StepTimer, check_finite
+    from styletts2_tpu_torch.profiling import (StepTimer, StepTrace,
+                                               check_finite)
     from styletts2_tpu_torch.text import build_symbol_dict
     from styletts2_tpu_torch.train import Batch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("-p", "--config_path", default="configs/config.yaml")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of steps 10-14 of "
+                    "the first epoch here")
     ap.add_argument("--nan-action", default="raise",
                     choices=["raise", "ignore"])
     args = ap.parse_args(argv)
@@ -176,7 +190,14 @@ def main(argv=None, device: str = "cuda") -> Trainer:
             opt.set_lr(k, 0.0)
         print(f"{k} Freezed")
 
-    trainer = Trainer(cfg, mods, opt, train_loader, val_loader, dev)
+    slm = None
+    if cfg.slmadv_params.enabled:
+        from styletts2_tpu_torch.nn.slm import build_trainer
+
+        slm = build_trainer(cfg, opt, dev)
+    trainer = Trainer(cfg, mods, opt, train_loader, val_loader, dev, slm)
+    tracer = (StepTrace(args.profile_dir, dev, *PROFILE_STEPS)
+              if args.profile_dir else None)
     # every random draw of the steps comes from this one generator
     gen = torch.Generator(device=dev).manual_seed(1)
     best_loss = float("inf")
@@ -202,8 +223,17 @@ def main(argv=None, device: str = "cuda") -> Trainer:
         train_loader.sampler.set_epoch(epoch)
         for i, (bin_id, nb) in enumerate(train_loader):
             batch = Batch.from_numpy(nb, dev)
+            traced = tracer is not None and epoch == start_epoch
+            if traced:
+                tracer.begin(i)
             t0 = time.perf_counter()
             metrics = trainer.train_step_for(bin_id)(mods, batch, gen)
+            if slm is not None and (i + 1) % cfg.slmadv_params.iter == 0:
+                metrics.update(slm.step(
+                    mods, batch.texts, batch.input_lengths, batch.waves,
+                    bin_crop_frames(bin_id, cfg.max_len), gen))
+            if traced:
+                tracer.end(i)
             timer.tick()
             iters += 1
             trainer.history.append(dict(
@@ -229,6 +259,9 @@ def main(argv=None, device: str = "cuda") -> Trainer:
                                 epoch=epoch)
 
         fetch_pending()
+        if tracer is not None and epoch == start_epoch:
+            tracer.close()  # an epoch shorter than the window
+            trainer.trace = tracer.path
         # ---------------- eval (train.py:363-463) ------------------------
         tot = {"mel": 0.0, "dur": 0.0, "f0": 0.0}
         n_eval = 0

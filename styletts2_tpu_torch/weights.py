@@ -103,7 +103,10 @@ def load_param_tree(engine_or_modules, tree: Mapping[str, Any],
     engine_or_modules: an infer.StyleTTS2 (its `.modules`) or a mapping of
     module name -> nn.Module. Modules absent from `tree` are left as they
     are; tree entries without a module (e.g. the training-only modules of
-    a full checkpoint) are ignored."""
+    a full checkpoint) are ignored. The SLM stage's modules load the same
+    way: the JAX package's WavLM tree (HF key names, the positional conv
+    fused) into nn.wavlm.WavLM, its wavlm_d tree into a
+    WavLMDiscriminator with its weight norm split (fuse=False)."""
     modules = (engine_or_modules if hasattr(engine_or_modules, "items")
                else engine_or_modules.modules)
     for name, module in modules.items():

@@ -23,7 +23,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "styletts2_tpu" or m.startswith("styletts2_tpu."))
 for must in ("train", "train_loop", "losses", "optim", "checkpoint",
-             "nn.asr", "nn.jdc", "nn.discriminators", "data.loader",
+             "nn.asr", "nn.jdc", "nn.discriminators", "nn.wavlm", "nn.slm",
+             "data.loader",
              "convert", "flac", "ops.launch_count", "tools.serve_http",
              "tools.export_serving", "tools.app", "tools.demo_infer",
              "tools.convert_to_torch", "tools.strip_checkpoint",
