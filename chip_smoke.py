@@ -3,7 +3,8 @@
 check it.
 
     python3 chip_smoke.py [--json PATH] [--b1-only] [--deploy-only]
-                          [--slm-only] [--package-from DIR]
+                          [--slm-only] [--parallel-only]
+                          [--package-from DIR]
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit; torch and CUDA versions);
@@ -87,11 +88,36 @@ Phases, each printed on its own line:
      discriminator ms, B2 once and B1 never, the modules it moved, peak
      memory), one round each of iSTFTNet and Vocos at full width, and the
      refusal without WavLM weights;
- 11. the kernels line (JSON), the card line, and the result line.
+ 11. the multi-GPU paths ("[11 parallel]", parallel/): one process per
+     rank of this script (`--parallel-worker`) with torchrun's environment
+     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), the
+     kernels built by this process. 11a, world size 1 over NCCL:
+     `train_loop --distributed` on phase 7's workspace (2 steps; B2 8 per
+     step and 7 per eval batch, B1 none), the data-parallel step against
+     make_train_step on the same batch and generator state, the
+     data-parallel bf16 engine's generate_batch on the eight texts against
+     the single engine's generate of each (the batch gate, phase2_spread
+     beside it; B1 96 per phase-2 evaluation of the rank), the f32
+     seq-parallel engine against the f32 single engine on the short text
+     (phase 6's f32 batch gate; the largest int16 difference), where the
+     frame-sharded decode departs from a one-rank one at frame bucket 512
+     (beside a one-rank decode with every AdaIN statistic moved by one
+     ulp), and the ms of the data-parallel step (split at its phase
+     marks), the single step, the seq-parallel and the plain decode. 11b,
+     two ranks on the one card over gloo with CUDA tensors: the same
+     engines at 2 ranks against 1 (the core boundaries holding no more of
+     the decode's difference than their share of the frames), and the
+     data-parallel step at global batch 4 (2 rows per rank, draws fixed,
+     dropout off) against one process's step (rtol 2e-3, atol 3e-4);
+     every rank's results equal; its times are two processes sharing one
+     device, not speeds. B1 and B2 are held against their plain versions
+     on the first call of each window (KernelProbe);
+ 12. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
-`--b1-only` stops after phase 3, `--deploy-only` runs phase 9 alone and
-`--slm-only` phase 10 alone (each on a fresh phase-7 workspace); with
+`--b1-only` stops after phase 3, `--deploy-only` runs phase 9 alone,
+`--slm-only` phase 10 alone and `--parallel-only` phase 11 alone (each on
+a fresh phase-7 workspace); with
 `--package-from DIR` the package
 (kernels, wrappers, config) comes from the checkout in DIR, so two commits'
 B1 kernels are timed by the same code in one run.
@@ -2573,6 +2599,724 @@ def phase_slm(chk: Checks, root: Path, card: str, cfg_path: Path, windows):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-GPU paths (styletts2_tpu_torch/parallel/), one process
+# per rank, launched as torchrun would launch them
+# ---------------------------------------------------------------------------
+
+PAR_TIMEOUT = 900  # s, for one group of rank processes
+# the f32 seq-parallel engine against the f32 single-device engine on the
+# same card: phase 6's tighter f32 gate (rel-l2)
+SP_BOUND = BATCH_BOUND["float32"]
+# parameters after one step, N ranks against one (tests/test_parallel.py)
+STEP_RTOL, STEP_ATOL = 2e-3, 3e-4
+# train_loop --distributed: the workspace's first bin (duration bin 15),
+# its 10 training clips
+PAR_TRAIN_STEPS = 2
+
+
+def _clone(v):
+    import torch
+
+    return v.detach().clone() if isinstance(v, torch.Tensor) else v
+
+
+class KernelProbe:
+    """Keeps the inputs of the first B1 and B2 wrapper calls of a window
+    (those calls launch and count as usual), so that after the window's
+    counts are read each kernel is held against its plain version at the
+    window's own shapes (B1: TOL / STATS_TOL of max(1, max |plain|); B2:
+    atol 2e-5 + rtol 1e-4, phase 4's gate)."""
+
+    def __init__(self):
+        self.b1 = self.b2 = None
+
+    def __enter__(self):
+        from styletts2_tpu_torch.ops import mel_kernel as MK
+        from styletts2_tpu_torch.ops import vocoder_kernel as VK
+
+        self._b1, self._b2 = VK.ada_snake_conv, MK.log_mel
+        probe = self
+
+        def b1(*a, **k):
+            if probe.b1 is None:
+                probe.b1 = ([_clone(v) for v in a],
+                            {n: _clone(v) for n, v in k.items()})
+            return probe._b1(*a, **k)
+
+        def b2(*a, **k):
+            if probe.b2 is None:
+                probe.b2 = ([_clone(v) for v in a],
+                            {n: _clone(v) for n, v in k.items()})
+            return probe._b2(*a, **k)
+
+        VK.ada_snake_conv, MK.log_mel = b1, b2
+        return self
+
+    def __exit__(self, *exc):
+        from styletts2_tpu_torch.ops import mel_kernel as MK
+        from styletts2_tpu_torch.ops import vocoder_kernel as VK
+
+        VK.ada_snake_conv, MK.log_mel = self._b1, self._b2
+        return False
+
+    def compare(self, chk: Checks, what: str) -> dict:
+        import torch
+        from styletts2_tpu_torch.ops import mel_kernel as MK
+        from styletts2_tpu_torch.ops import vocoder_kernel as VK
+
+        out = {}
+        if self.b1 is not None:
+            a, k = self.b1
+            got, want = VK.ada_snake_conv(*a, **k), VK.ada_snake_conv_plain(
+                *a, **k)
+            stats = isinstance(got, tuple)
+            go, wo = (got[0], want[0]) if stats else (got, want)
+            name = str(go.dtype).split(".")[-1]
+            scale = max(1.0, wo.float().abs().max().item())
+            err = (go.float() - wo.float()).abs().max().item()
+            ok = err <= TOL[name] * scale
+            if stats:
+                serr = ((got[1] - want[1]).abs().max().item()
+                        / max(1.0, want[1].abs().max().item()))
+                ok = ok and serr <= STATS_TOL[name]
+            chk.check(ok, f"{what}: B1 {tuple(a[0].shape)} {name} vs plain "
+                      f"err {err:.3g} of max {scale:.3g}")
+            out["b1"] = dict(shape=list(a[0].shape), dtype=name,
+                             max_abs_err=err, max_plain=scale)
+        if self.b2 is not None:
+            a, k = self.b2
+            got, want = MK.log_mel(*a, **k), MK.log_mel_plain(*a, **k)
+            err = (got - want).abs().max().item()
+            chk.check(bool(torch.allclose(got, want, atol=2e-5, rtol=1e-4)),
+                      f"{what}: B2 {tuple(a[0].shape)} vs plain err {err:.3g}")
+            out["b2"] = dict(shape=list(a[0].shape), max_abs_err=err)
+        return out
+
+
+def probe_line(p) -> str:
+    """The KernelProbe comparisons of a window, for its printed line."""
+    parts = []
+    if "b1" in p:
+        b = p["b1"]
+        parts.append(f"B1 {tuple(b['shape'])} {b['dtype']} vs plain max "
+                     f"abs err {b['max_abs_err']:.3g} of max "
+                     f"{b['max_plain']:.3g}")
+    if "b2" in p:
+        parts.append(f"B2 {tuple(p['b2']['shape'])} vs plain max abs err "
+                     f"{p['b2']['max_abs_err']:.3g}")
+    return "; ".join(parts) or "no kernel call"
+
+
+def _counts_zero():
+    from styletts2_tpu_torch.ops import launch_count as LC
+
+    LC.reset()
+
+
+def _synced_ms(fn, reps: int = 3):
+    """Median synced wall ms of `reps` calls (after one warm-up call)."""
+    timed(fn)
+    return float(np.median([timed(fn)[1] * 1e3 for _ in range(reps)]))
+
+
+def _par_models(cfg, path, dev):
+    """The eight modules from the checkpoint at `path`, weight norm split,
+    on `dev` in train mode, the pitch extractor frozen (train_loop's
+    build)."""
+    from styletts2_tpu_torch import weights as W
+    from styletts2_tpu_torch.checkpoint import apply_checkpoint, load_checkpoint
+    from styletts2_tpu_torch.models import build_model
+
+    mods = build_model(cfg.model_params)
+    W.split_weight_norm(mods)
+    apply_checkpoint(mods, load_checkpoint(path))
+    mods.to(dev).train()
+    mods["pitch_extractor"].eval().requires_grad_(False)
+    return mods
+
+
+def _par_stepper(cfg, mods, crop, mesh, seed: int):
+    """run(batch, draws, times) -> (metrics as floats, synced wall ms): D/G
+    steps
+    on `mods` (data-parallel over `mesh`, or single-process with mesh
+    None) with the loop's optimizer settings and one generator."""
+    import torch
+
+    from styletts2_tpu_torch.optim import MultiOptimizer
+    from styletts2_tpu_torch.train import (make_parallel_train_step,
+                                          make_train_step)
+
+    opt = MultiOptimizer(mods, lr=cfg.optimizer_params.lr,
+                         ft_lr=cfg.optimizer_params.ft_lr)
+    step = (make_train_step(cfg, opt, crop) if mesh is None
+            else make_parallel_train_step(cfg, opt, mesh, crop))
+    gen = torch.Generator(device=next(mods.parameters()).device
+                          ).manual_seed(seed)
+
+    def run(batch, draws=None, times=None):
+        metrics, wall = timed(lambda: step(mods, batch, gen, draws, times))
+        return {k: float(v) for k, v in metrics.items()}, wall * 1e3
+
+    return run
+
+
+def _param_diff(a, b):
+    """(bit-identical, max abs difference, every tensor within STEP_RTOL /
+    STEP_ATOL) of two module dicts' parameters."""
+    import torch
+
+    same, worst, close = True, 0.0, True
+    for k in a:
+        for pa, pb in zip(a[k].parameters(), b[k].parameters()):
+            same = same and torch.equal(pa, pb)
+            worst = max(worst, (pa - pb).abs().max().item())
+            close = close and torch.allclose(pa, pb, rtol=STEP_RTOL,
+                                             atol=STEP_ATOL)
+    return same, worst, close
+
+
+def _par_engines(cfg, mesh, chk: Checks, tag: str, card: str, rank0: bool):
+    """The data-parallel bf16 engine's generate_batch on the eight texts
+    against the single-device engine's generate of each (rank 0), with B1
+    and B2 counted and probed in the data-parallel window; then the f32
+    seq-parallel engine against the f32 single engine on the short text.
+    Returns the results."""
+    import copy
+
+    import torch
+    from styletts2_tpu_torch.infer import StyleTTS2
+    from styletts2_tpu_torch.parallel import seqpar as SP
+
+    out = {}
+    per_eval = b1_per_eval(cfg.model_params.decoder)
+    dev = mesh.device
+    dp = StyleTTS2(copy.deepcopy(cfg), seed=0, mesh=mesh, device=dev.type)
+    dp.duration_scale = DURATION_SCALE
+    clip = style_clip(dp.sr)
+    dp.generate_batch(BATCH_TEXTS[:2], {"style": dp.compute_style(clip),
+                                        "speed": 1.0}, stabilize=False)
+    torch.cuda.synchronize()
+    _counts_zero()
+    dp.phase2_calls = 0
+    with KernelProbe() as probe:
+        style = {"style": dp.compute_style(clip), "speed": 1.0}
+        outs, wall = timed(lambda: dp.generate_batch(BATCH_TEXTS, style,
+                                                     stabilize=False))
+    c = dict(phase2_calls=dp.phase2_calls, replays=0, **launches())
+    check_b1_counts(chk, c, f"{tag} data-parallel generate_batch", per_eval)
+    chk.check(c["b2"] >= 1, f"{tag} data-parallel compute_style B2")
+    out["dp_window"] = c
+    out["dp_probe"] = probe.compare(chk, f"{tag} data-parallel window")
+    if rank0:
+        print(f"[11 parallel] {tag} data-parallel window: "
+              f"{probe_line(out['dp_probe'])}", flush=True)
+    secs = sum(len(w) for w in outs) / dp.sr
+    out["dp_wall_ms"] = wall * 1e3
+    out["dp_digest"] = float(sum(np.abs(w).sum() for w in outs))
+    if rank0:
+        one = StyleTTS2(copy.deepcopy(cfg), seed=0, device=dev)
+        one.duration_scale = DURATION_SCALE
+        rel = []
+        for text, got in zip(BATCH_TEXTS, outs):
+            want = one.generate(text, style, stabilize=False)
+            rel.append(rel_l2(got, want) if got.shape == want.shape
+                       else 1.0)
+        spread = phase2_spread(one, BATCH_TEXTS[0], style, probes=False)
+        bound = BATCH_BOUND["bfloat16"]
+        chk.check(max(rel) < bound, f"{tag} data-parallel generate_batch vs "
+                  f"generate rel-l2 {rel}")
+        out["dp_rel_l2"], out["dp_spread"] = rel, spread
+        print(f"[11 parallel] {tag} data-parallel engine ({mesh.size} "
+              f"ranks, batch buckets {dp.batch_buckets}): generate_batch "
+              f"{len(BATCH_TEXTS)} texts, {secs:.2f} s audio in "
+              f"{wall * 1e3:.1f} ms, {c['phase2_calls']} phase-2 calls on "
+              f"this rank, launches {c}; each text vs the single engine's "
+              f"generate rel-l2 {', '.join(f'{r:.3g}' for r in rel)} "
+              f"(bound {bound:g}); one phase-2 call on identical inputs "
+              f"moves {spread['batch8']:.3g} at batch 8 vs 1 and "
+              f"{spread['next_bucket']:.3g} at the next frame bucket "
+              f"(phase2_spread) | {card}",
+              flush=True)
+        del one
+    del dp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = []
+    orig = SP.sp_decoder_apply
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    SP.sp_decoder_apply = spy
+    try:
+        sp = StyleTTS2(copy.deepcopy(cfg), seed=0, mesh=mesh,
+                       seq_parallel=True, decoder_dtype="float32",
+                       device=dev.type)
+        style32 = {"style": sp.compute_style(clip), "speed": 1.0}
+        wav_sp, wall_sp = timed(lambda: sp.generate(TEXTS["short"], style32))
+    finally:
+        SP.sp_decoder_apply = orig
+    out["sp_decodes"] = len(calls)
+    chk.check(len(calls) >= 1, f"{tag} seq-parallel decode taken")
+    out["sp_digest"] = float(np.abs(wav_sp).sum())
+    one = None
+    if rank0:
+        one = StyleTTS2(copy.deepcopy(cfg), seed=0, decoder_dtype="float32",
+                        device=dev)
+        one.fused_enabled = False
+    # the decode alone at frame bucket 512 (every rank: the frame-sharded
+    # decode's collectives), the plain decoder on rank 0, on the same
+    # phase-2 inputs
+    with torch.inference_mode():
+        tokens = torch.ones(1, 64, dtype=torch.int64, device=dev)
+        mask = torch.ones(1, 64, dtype=torch.bool, device=dev)
+        s = sp._style_row(style32["style"])
+        t_en, d, _ = sp._phase1(tokens, mask, s)
+        durs = torch.full((1, 64), 8, dtype=torch.int32, device=dev)
+        pros = sp._prosody(t_en, d, s, durs, 512)
+        sp_ms = _synced_ms(lambda: sp._decode(*pros[:3], s, pros[3]))
+        if rank0:
+            plain_ms = _synced_ms(lambda: one._decode(*pros[:3], s,
+                                                      pros[3]))
+    out.update(sp_decode_ms=sp_ms, sp_generate_ms=wall_sp * 1e3)
+    dep = _sp_departure(sp, one, mesh, pros, s, tag, card)
+    if dep and mesh.size > 1:
+        # a halo fault would put the difference at the core boundaries:
+        # they may hold no more of it than their share of the frames
+        chk.check(dep["sp_n_boundary_share"] <= dep["sp_boundary_frames"],
+                  f"{tag} frame-sharded decode: "
+                  f"{dep['sp_n_boundary_share']:.3g} of the squared "
+                  f"difference from one rank within the margin of a core "
+                  f"boundary, more than that band's "
+                  f"{dep['sp_boundary_frames']:.3g} of the frames")
+    out.update(dep)
+    if rank0:
+        wav_1 = one.generate(TEXTS["short"], {"style": one.compute_style(
+            clip), "speed": 1.0})
+        ok = wav_sp.shape == wav_1.shape
+        rel = rel_l2(wav_sp, wav_1) if ok else 1.0
+        steps = (int(np.abs(np.round(wav_sp * 32767)
+                            - np.round(wav_1 * 32767)).max()) if ok else -1)
+        chk.check(ok and rel < SP_BOUND, f"{tag} f32 seq-parallel vs single "
+                  f"engine rel-l2 {rel:.3g}")
+        out.update(sp_rel_l2=rel, sp_int16_steps=steps,
+                   plain_decode_ms=plain_ms)
+        print(f"[11 parallel] {tag} f32 seq-parallel engine ({mesh.size} "
+              f"ranks, margin {sp._sp_margin}): short text {len(wav_sp)} "
+              f"samples, {len(calls)} frame-sharded decodes, vs the f32 "
+              f"single engine rel-l2 {rel:.3g} (bound {SP_BOUND:g}), largest "
+              f"difference {steps} int16 steps; decode at frame bucket 512: "
+              f"seq-parallel {sp_ms:.1f} ms, plain {plain_ms:.1f} ms | "
+              f"{card}", flush=True)
+        del one
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_departure(sp, one, mesh, pros, s, tag: str, card: str):
+    """Where the f32 frame-sharded decode departs from a one-rank one, on
+    the phase-2 inputs of the decode timing (frame bucket 512): every rank
+    decodes over `mesh`; rank 0 also decodes over a one-rank group (the
+    whole sequence as one window), with the plain decoder, and over one
+    rank twice more: with the decoder input moved by one f32 ulp at
+    random signs, and with every AdaIN mean and variance moved by one ulp
+    (the size of the rounding that summing the statistics in parts
+    changes). Returns rank 0's numbers: rel-l2 and the largest int16 step
+    of each against the one-rank decode, and for the N-rank decode and
+    the moved statistics the asr frame of the largest difference, its
+    distance from the nearest interior core boundary and from the nearest
+    end of the valid frames, and the shares of the squared difference
+    within +-margin frames of a core boundary and within 2 frames of an
+    end, beside those bands' shares of the frames."""
+    import torch
+    import torch.distributed as dist
+    from styletts2_tpu_torch.nn import layers as L
+    from styletts2_tpu_torch.parallel import Mesh
+    from styletts2_tpu_torch.parallel import seqpar as SP
+
+    # a one-rank group; every rank takes part in making it
+    sub = dist.new_group([0]) if mesh.size > 1 else None
+    asr, f0, n_en, frame_mask = pros[:4]
+    s = s.float()
+    dec = sp.modules["decoder"]
+
+    @torch.inference_mode()
+    def decode(m, x):
+        w = SP.sp_decoder_apply(m, dec, x, f0.float(), n_en.float(), s,
+                                margin=sp._sp_margin,
+                                n_valid=frame_mask.sum(dim=1))
+        return w[0, :, 0].float().cpu().numpy()
+
+    w_n = decode(mesh, asr)
+    if mesh.rank != 0:
+        return {}
+    one_rank = mesh if sub is None else Mesh(sub, 0, 1, mesh.device, "sp")
+    w_1 = decode(one_rank, asr)
+    with torch.inference_mode():
+        sign = torch.randint(0, 2, asr.shape, generator=torch.Generator(
+            ).manual_seed(0)).to(asr.device) * 2 - 1
+        nudged = asr * (1 + sign * 2.0 ** -23)
+        w_plain = one.modules["decoder"](asr, f0.float(), n_en.float(), s,
+                                         frame_mask)[0, :, 0].float()
+    w_plain = w_plain.cpu().numpy()
+    w_ulp = decode(one_rank, nudged)
+    stats = L.masked_stats
+
+    def moved_stats(xf, m):
+        mean, var = stats(xf, m)
+        return mean * (1 + 2.0 ** -23), var * (1 + 2.0 ** -23)
+
+    L.masked_stats = moved_stats
+    try:
+        w_stat = decode(one_rank, asr)
+    finally:
+        L.masked_stats = stats
+
+    def steps(a, b):
+        q = lambda w: np.round(np.clip(w, -1, 1) * 32767)  # noqa: E731
+        return int(np.abs(q(a) - q(b)).max())
+
+    n_frames = frame_mask.shape[1]
+    n_valid = int(frame_mask.sum())
+    spf = len(w_n) // n_frames  # samples per asr frame
+    frames = np.arange(len(w_n)) // spf
+    bounds = [k * n_frames // mesh.size for k in range(1, mesh.size)]
+    core_band = np.zeros(len(w_n), bool)
+    for b in bounds:
+        core_band |= np.abs(frames - b) < sp._sp_margin
+    ends = (frames < 2) | (np.abs(frames - (n_valid - 1)) < 2)
+
+    def where(w, key):
+        d2 = (w - w_1) ** 2
+        frame = int(np.argmax(d2)) // spf
+        total = max(float(d2.sum()), 1e-30)
+        return {f"{key}_rel": rel_l2(w, w_1), f"{key}_steps": steps(w, w_1),
+                f"{key}_worst_frame": frame,
+                f"{key}_from_boundary": (min(abs(frame - b) for b in bounds)
+                                         if bounds else -1),
+                f"{key}_from_end": min(frame, abs(frame - (n_valid - 1))),
+                f"{key}_boundary_share": float(d2[core_band].sum() / total),
+                f"{key}_end_share": float(d2[ends].sum() / total)}
+
+    out = dict(where(w_n, "sp_n"), **where(w_stat, "sp_stat"),
+               sp_plain_rel=rel_l2(w_plain, w_1),
+               sp_plain_steps=steps(w_plain, w_1),
+               sp_ulp_rel=rel_l2(w_ulp, w_1), sp_ulp_steps=steps(w_ulp, w_1),
+               sp_boundary_frames=float(core_band.mean()),
+               sp_end_frames=float(ends.mean()))
+
+    def line(key):
+        return (f"rel-l2 {out[key + '_rel']:.3g}, {out[key + '_steps']} "
+                f"int16 steps, largest at asr frame "
+                f"{out[key + '_worst_frame']} ({out[key + '_from_end']} from "
+                f"an end of the {n_valid} valid frames, "
+                f"{out[key + '_from_boundary']} from a core boundary; -1: "
+                f"none); {100 * out[key + '_end_share']:.1f}% of the "
+                f"squared difference within 2 frames of an end, "
+                f"{100 * out[key + '_boundary_share']:.1f}% within "
+                f"+-{sp._sp_margin} of a core boundary")
+
+    print(f"[11 parallel] {tag} f32 frame-sharded decode at frame bucket "
+          f"{n_frames} against one rank (bands: ends "
+          f"{100 * out['sp_end_frames']:.1f}%, core boundaries "
+          f"{100 * out['sp_boundary_frames']:.1f}% of the frames): "
+          f"{mesh.size} rank(s) {line('sp_n')}; one rank with every AdaIN "
+          f"statistic moved by one ulp {line('sp_stat')}; the input moved "
+          f"by one ulp rel-l2 {out['sp_ulp_rel']:.3g} "
+          f"({out['sp_ulp_steps']} steps); the plain decoder rel-l2 "
+          f"{out['sp_plain_rel']:.3g} ({out['sp_plain_steps']} steps) | "
+          f"{card}", flush=True)
+    return out
+
+
+def parallel_11a(spec, mesh, chk: Checks, card: str):
+    """World size 1 over NCCL: train_loop --distributed on phase 7's
+    workspace (PAR_TRAIN_STEPS steps), the data-parallel step against
+    make_train_step on the same batch and generator state, then the
+    engines (_par_engines)."""
+    import torch
+    from styletts2_tpu_torch import train_loop
+    from styletts2_tpu_torch.config import load_config
+    from styletts2_tpu_torch.data.loader import bin_crop_frames, collate
+    from styletts2_tpu_torch.train import Batch, PhaseTimes
+
+    out = {}
+    _counts_zero()
+    with KernelProbe() as probe:
+        trainer, wall = timed(lambda: train_loop.main(
+            ["-p", spec["train_cfg"], "--distributed"],
+            device=mesh.device.type))
+    c = launches()
+    hist, evals = trainer.history, trainer.evals
+    finite = all(np.isfinite(v) for h in hist for v in h["metrics"].values())
+    chk.check(len(hist) == PAR_TRAIN_STEPS and finite,
+              f"11a train_loop --distributed: {len(hist)} steps, finite "
+              f"{finite}")
+    chk.check(c["b2"] == B2_PER_STEP * len(hist) + B2_PER_EVAL * len(evals)
+              and c["b1"] == 0, f"11a train_loop launches {c}")
+    out["train_window"] = c
+    out["train_probe"] = probe.compare(chk, "11a train_loop window")
+    print(f"[11 parallel] 11a train_loop window: "
+          f"{probe_line(out['train_probe'])}", flush=True)
+    step_ms = ", ".join(f"{h['step_ms']:.1f}" for h in hist)
+    print(f"[11 parallel] 11a train_loop --distributed (1 rank, "
+          f"{trainer.mesh}): {len(hist)} steps, {len(evals)} eval batches "
+          f"in {wall:.1f} s, launches {c}, host ms per step call "
+          f"{step_ms} | {card}", flush=True)
+
+    cfg = load_config(spec["train_cfg"])
+    sampler = trainer.train_loader.sampler
+    bin_id = sorted(sampler.time_bins)[0]
+    idx = sampler.time_bins[bin_id][:cfg.batch_size]
+    batch = Batch.from_numpy(collate(trainer.train_loader.dataset, idx,
+                                     bin_id), mesh.device)
+    crop = bin_crop_frames(bin_id, cfg.max_len)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs, first = {}, {}
+    for name, mesh_or_none in (("data-parallel", mesh), ("single", None)):
+        mods = _par_models(cfg, spec["seed_ckpt"], mesh.device)
+        runs[name] = (mods, _par_stepper(cfg, mods, crop, mesh_or_none, 3))
+        first[name] = runs[name][1](batch)[0]
+    same, worst, close = _param_diff(runs["data-parallel"][0],
+                                     runs["single"][0])
+    m_dp, m_1 = first["data-parallel"], first["single"]
+    chk.check(close and all(abs(m_dp[k] - m_1[k]) <= 1e-3 * abs(m_1[k])
+                            for k in m_1),
+              f"11a data-parallel step vs make_train_step: max abs "
+              f"{worst:.3g}")
+    # then two more steps of each, in turns (the first steps paid for the
+    # cuDNN plans and the optimizer states)
+    ms = {name: [] for name in runs}
+    for name in ("data-parallel", "single", "single", "data-parallel"):
+        ms[name].append(runs[name][1](batch)[1])
+    # one more step of each split at the step's marks (train.PhaseTimes,
+    # synchronised at each: d_sync / g_sync are the data-parallel step's
+    # all-reduces and the copies around them)
+    split = {}
+    for name in ("data-parallel", "single"):
+        split[name] = PhaseTimes(mesh.device)
+        runs[name][1](batch, times=split[name])
+        split[name] = split[name].ms
+    out.update(step_identical=same, step_max_abs=worst,
+               dp_step_ms=ms["data-parallel"], single_step_ms=ms["single"],
+               step_phases_ms=split)
+    print(f"[11 parallel] 11a data-parallel step (1 rank) vs make_train_step"
+          f" on bin {bin_id}'s batch of {cfg.batch_size}, one generator "
+          f"state: parameters bit-identical {same}, max abs {worst:.3g}; "
+          f"synced wall of steps 2-3, in turns: data-parallel "
+          f"{', '.join(f'{t:.1f}' for t in ms['data-parallel'])} ms, "
+          f"single {', '.join(f'{t:.1f}' for t in ms['single'])} ms | "
+          f"{card}", flush=True)
+    print("[11 parallel] 11a step phases, ms (one more step each, synced at "
+          "each mark): " + "; ".join(
+              f"{name} " + ", ".join(f"{k} {v:.1f}" for k, v in t.items())
+              for name, t in split.items()) + f" | {card}", flush=True)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(_par_engines(load_config(spec["engine_cfg"]), mesh, chk,
+                            "11a", card, True))
+    return out
+
+
+def parallel_11b(spec, mesh, chk: Checks, card: str):
+    """Two ranks on the one card over gloo with CUDA tensors: the engines
+    (_par_engines) at 2 ranks against 1, then the data-parallel step at
+    global batch 4 (2 rows per rank) against one process's step on the
+    same batch, draws fixed and dropout off."""
+    import torch
+    from styletts2_tpu_torch.config import load_config
+    from styletts2_tpu_torch.data import build_dataloader
+    from styletts2_tpu_torch.data.loader import bin_crop_frames
+    from styletts2_tpu_torch.parallel import shard_batch
+    from styletts2_tpu_torch.text import build_symbol_dict
+    from styletts2_tpu_torch.train import Batch, Draws
+
+    rank0 = mesh.rank == 0
+    out = _par_engines(load_config(spec["engine_cfg"]), mesh, chk, "11b",
+                       card, rank0)
+    cfg = load_config(spec["train_cfg"])
+    with open(cfg.data_params.train_data, encoding="utf-8") as f:
+        loader = build_dataloader(f.readlines(), cfg.data_params.root_path,
+                                  build_symbol_dict(cfg.symbol),
+                                  batch_size=4, debug=False)
+    bin_id, nb = next(iter(loader))
+    batch = Batch.from_numpy(nb, mesh.device)
+    crop = bin_crop_frames(bin_id, cfg.max_len)
+    mods = _par_models(cfg, spec["seed_ckpt"], mesh.device)
+    rng = np.random.default_rng(5)
+    max_start = np.maximum(nb.mel_lengths // 2 - crop, 0)
+    spf = mods["decoder"].generator.source_samples_per_frame
+    rand_ini = rng.random((4, 9)).astype(np.float32)
+    rand_ini[:, 0] = 0.0
+    source = None if not spf else (
+        torch.from_numpy(rand_ini), torch.from_numpy(rng.standard_normal(
+            (4, 2 * crop * spf, 9)).astype(np.float32)))
+    draws = Draws(coin=True, dropout=False, source=source,
+                  starts=torch.from_numpy(rng.integers(0, max_start + 1)))
+    local, local_draws = shard_batch(mesh, (batch, draws))
+    m_dp, dp_ms = _par_stepper(cfg, mods, crop, mesh, 4)(local, local_draws)
+    out["step_params_digest"] = float(sum(
+        p.double().abs().sum().item() for p in mods.parameters()))
+    out["dp_step_ms"] = dp_ms
+    torch.cuda.empty_cache()
+    if rank0:
+        one = _par_models(cfg, spec["seed_ckpt"], mesh.device)
+        m_1, one_ms = _par_stepper(cfg, one, crop, None, 4)(
+            batch, shard_batch(mesh, draws, local=True))
+        same, worst, close = _param_diff(mods, one)
+        chk.check(close and all(abs(m_dp[k] - m_1[k]) <= 1e-3 * abs(m_1[k])
+                                for k in m_1),
+                  f"11b data-parallel step (2 ranks) vs one process: max "
+                  f"abs {worst:.3g}")
+        out.update(step_identical=same, step_max_abs=worst,
+                   single_step_ms=one_ms)
+        print(f"[11 parallel] 11b data-parallel step, 2 ranks x 2 rows of "
+              f"bin {bin_id} vs one process on the 4 rows (draws fixed, "
+              f"dropout off): parameters within rtol {STEP_RTOL:g} / atol "
+              f"{STEP_ATOL:g} {close}, max abs {worst:.3g}, losses "
+              + ", ".join(f"{k} {m_dp[k]:.4f}/{m_1[k]:.4f}" for k in m_1)
+              + f"; synced wall (two processes share one device, not a "
+              f"speed) {dp_ms:.1f} ms vs one process {one_ms:.1f} ms | "
+              f"{card}", flush=True)
+    return out
+
+
+def parallel_worker(spec_path: str) -> int:
+    """One rank of phase 11 (`--parallel-worker SPEC`): joins the process
+    group from the environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT), runs 11a or 11b and writes its results and failed
+    checks to the spec's out file for its rank."""
+    spec = json.loads(Path(spec_path).read_text())
+    sys.path.insert(0, spec["root"])
+    import torch
+    import torch.distributed as dist
+    from styletts2_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    dev = init_distributed("cuda", backend=spec["backend"])
+    mesh = make_mesh(device=dev)
+    chk = Checks()
+    try:
+        fn = parallel_11a if spec["phase"] == "11a" else parallel_11b
+        out = fn(spec, mesh, chk, spec["card"])
+        out["launches"] = launches()
+    finally:
+        dist.destroy_process_group()
+    Path(spec["out"].format(rank=mesh.rank)).write_text(json.dumps(
+        dict(out, failed=chk.failed), default=float))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(root: Path, spec: dict, world: int, local_ranks):
+    """Start `world` rank processes of this script with torchrun's
+    environment, wait for every one (killing the group on a timeout or a
+    failure) and return their results in rank order."""
+    import os
+
+    work = root / "build" / "parallel_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, out=str(work / (spec["phase"] + "_rank{rank}.json")))
+    spec_path = work / f"{spec['phase']}_spec.json"
+    spec_path.write_text(json.dumps(spec))
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-worker",
+         str(spec_path)],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(local_ranks[r])))
+        for r in range(world)]
+    try:
+        deadline = time.perf_counter() + PAR_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if (time.perf_counter() > deadline
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    results = []
+    for r in range(world):
+        path = Path(spec["out"].format(rank=r))
+        results.append(json.loads(path.read_text()) if path.exists()
+                       and codes[r] == 0 else None)
+    return codes, results
+
+
+def phase_parallel(chk: Checks, root: Path, card: str, cfg_path: Path,
+                   windows):
+    """Phase 11: the multi-GPU paths, one process per rank with torchrun's
+    environment, the kernels already built by this process (phase 2):
+    11a world size 1 over NCCL, 11b two ranks on the one card over gloo
+    with CUDA tensors. Adds each rank's windows to `windows`."""
+    import torch
+    import yaml
+
+    t0 = time.perf_counter()
+    ws = cfg_path.parent
+    train_cfg = ws / "config_parallel.yaml"
+    raw = yaml.safe_load(cfg_path.read_text())
+    lines = (ws / "train_list.txt").read_text().splitlines(True)
+    # the first bin's training clips only: PAR_TRAIN_STEPS steps of batch 5
+    (ws / "train_list_parallel.txt").write_text("".join(
+        lines[:PAR_TRAIN_STEPS * raw["batch_size"]]))
+    raw["data_params"]["train_data"] = str(ws / "train_list_parallel.txt")
+    raw["log_dir"] = str(ws / "runs_parallel")
+    train_cfg.write_text(yaml.safe_dump(raw, allow_unicode=True))
+    spec = dict(root=str(root), card=card, train_cfg=str(train_cfg),
+                seed_ckpt=str(ws / "seed.ckpt"),
+                engine_cfg=str(root / "configs" / "config_example.yaml"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for phase, world, backend in (("11a", 1, "nccl"), ("11b", 2, "gloo")):
+        t1 = time.perf_counter()
+        codes, res = _run_ranks(root, dict(spec, phase=phase,
+                                           backend=backend),
+                                world, [0] * world)
+        ok = all(c == 0 for c in codes) and all(r is not None for r in res)
+        chk.check(ok, f"[11 parallel] {phase} rank exit codes {codes}")
+        if not ok:
+            continue
+        for r, rr in enumerate(res):
+            for f in rr["failed"]:
+                chk.check(False, f"{phase} rank {r}: {f}")
+            for key in ("train_window", "dp_window"):
+                if key in rr:
+                    windows[f"parallel_{phase}_{key}_rank{r}"] = rr[key]
+        if world > 1:
+            for key in ("dp_digest", "sp_digest", "step_params_digest"):
+                same = len({rr[key] for rr in res}) == 1
+                chk.check(same, f"{phase}: every rank's {key} equal")
+        out[phase] = res
+        print(f"[11 parallel] {phase}: {world} rank(s) over {backend} in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"[11 parallel] phase wall {time.perf_counter() - t0:.1f} s | "
+          f"{card}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write the measurements here")
@@ -2584,11 +3328,18 @@ def main() -> int:
     ap.add_argument("--slm-only", action="store_true",
                     help="run phases 1, 2 and 10 only (on a fresh phase-7 "
                     "workspace) and print no result line")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run phases 1, 2 and 11 only (on a fresh phase-7 "
+                    "workspace) and print no result line")
+    ap.add_argument("--parallel-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)  # one rank of phase 11
     ap.add_argument("--package-from", metavar="DIR",
                     help="import styletts2_tpu_torch from the checkout in "
                     "DIR instead of this one (with --b1-only: time another "
                     "commit's kernel with this script's timers)")
     args = ap.parse_args()
+    if args.parallel_worker:
+        return parallel_worker(args.parallel_worker)
     try:
         import torch
     except ImportError:
@@ -2635,6 +3386,14 @@ def main() -> int:
                 {"card": card, "deploy": deploy, "failed": chk.failed},
                 indent=1))
         return 1 if chk.failed else 0
+    if args.parallel_only:
+        par = phase_parallel(chk, root, card, seed_workspace(root), {})
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"card": card, "parallel": par, "failed": chk.failed},
+                indent=1, default=str))
+        return 1 if chk.failed else 0
     if args.slm_only:
         slm = phase_slm(chk, root, card, seed_workspace(root), {})
         if args.json:
@@ -2665,8 +3424,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     slm = phase_slm(chk, root, card, workload[0], windows)
-    # the main path's launches: every window of phases 5, 7, 8, 9 and 10
-    # (graph replays counted as the launches they recorded)
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = phase_parallel(chk, root, card, workload[0], windows)
+    # the main path's launches: every window of phases 5, 7, 8, 9, 10 and
+    # 11 (graph replays counted as the launches they recorded; phase 11's
+    # per rank)
     n_b1 = sum(c["b1"] for c in windows.values())
     n_b2 = sum(c["b2"] for c in windows.values())
 
@@ -2697,7 +3460,8 @@ def main() -> int:
             {"card": card, "kernels": kernels, "b1": b1, "b2": b2,
              "engine": engine_out, "launches": windows,
              "train": train_out, "decoders": decoders, "deploy": deploy,
-             "slm": slm, "failed": chk.failed}, indent=1, default=str))
+             "slm": slm, "parallel": par, "failed": chk.failed}, indent=1,
+            default=str))
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} checks failed: {chk.failed}",
               file=sys.stderr)

@@ -1,7 +1,8 @@
 """Inference engine: the user-facing StyleTTS2 API on PyTorch/CUDA.
 
-Counterpart of styletts2_tpu/infer.py, with the same API on one device:
-  StyleTTS2(config, models_path, *, params, seed, decoder_dtype, device)
+Counterpart of styletts2_tpu/infer.py, with the same API:
+  StyleTTS2(config, models_path, *, params, seed, decoder_dtype, device,
+            mesh, seq_parallel)
   .get_styles(speaker, denoise, avg_style, load_styles) -> style dict
   .generate(phonem, style, stabilize, n_merge) -> np.ndarray waveform
   .generate_stream(...) -> iterator of waveform segments
@@ -38,8 +39,20 @@ captures the pair's graph on a background thread meanwhile; the next
 request on that pair replays it. `wait_fused_compiles` waits for the
 queued captures and re-raises the first that failed.
 
-Not ported yet: CUDA graphs for the batched two-phase calls, multi-GPU
-(`mesh`, `seq_parallel`).
+Multi-GPU (parallel/; every rank runs the same calls, as torchrun
+launches it): `mesh=parallel.make_mesh()` is the data-parallel engine:
+batch buckets (n, 2n, 4n) for n ranks, the last phase-2 group of a frame
+bucket padded with copies of its last row, each rank running its rows of
+every phase-1 and phase-2 call and the rows gathered (an all-reduce of a
+zero-filled buffer), so every rank keeps the whole batch, runs the same
+host glue and returns every waveform; the fused graph path is off, so
+phase 2 runs eagerly with kernel B1 on every rank. `seq_parallel=True`
+(with a mesh) keeps the single-device batching and decodes a frame bucket
+that divides over the ranks into at least max(32, the receptive field)
+frames each through parallel/seqpar.py (one chunk's decode split over
+its time axis; B1 stays off inside the windows, as in JAX).
+
+Not ported yet: CUDA graphs for the batched two-phase calls.
 """
 
 from __future__ import annotations
@@ -173,10 +186,15 @@ def _device_postprocess_durations(duration: torch.Tensor, mask: torch.Tensor,
     return pred, pred.sum(dim=1, dtype=torch.int32)
 
 
-def _partition_exact(idxs, sizes):
+def _partition_exact(idxs, sizes, pad_tail: bool = False):
     """Split a work list into groups whose lengths are exactly batch sizes
     (descending greedy over `sizes`, e.g. 6 -> [4, 2]): a padded row costs
-    a whole row of vocoder work, one more call only its fixed cost."""
+    a whole row of vocoder work, one more call only its fixed cost.
+
+    pad_tail: when the sizes do not include 1 (data-parallel mode: every
+    batch is a multiple of the rank count), a remainder smaller than the
+    smallest size is a last short group, which the caller pads; every
+    other group is still exact."""
     out = []
     pos = 0
     remaining = len(idxs)
@@ -186,7 +204,10 @@ def _partition_exact(idxs, sizes):
         pos += take
         remaining -= take
     if remaining > 0:
-        raise ValueError(f"cannot partition {len(idxs)} into sizes {sizes}")
+        if not pad_tail:
+            raise ValueError(
+                f"cannot partition {len(idxs)} into sizes {sizes}")
+        out.append(idxs[pos:])
     return out
 
 
@@ -275,17 +296,42 @@ class _FusedGraph:
 
 
 class StyleTTS2:
-    """Zero-shot TTS engine on one device (CUDA by default)."""
+    """Zero-shot TTS engine on one device (CUDA by default), or over the
+    ranks of a mesh."""
 
     def __init__(self, config, models_path: Optional[str] = None, *,
                  params: Optional[Dict[str, Any]] = None, seed: int = 0,
-                 decoder_dtype: Optional[str] = None, device="cuda"):
+                 decoder_dtype: Optional[str] = None, device="cuda",
+                 mesh=None, seq_parallel: bool = False):
         """config: a Config or a YAML path. Weights: `params` ({module:
         numpy tree}, e.g. the JAX package's build_model output), else the
         `net` of the native .ckpt at `models_path`, else seeded random
         weights. device: "cuda" (the default) raises when no GPU is
         present; "cpu" must be asked for and runs the kernels' plain
-        versions, with no graphs."""
+        versions, with no graphs.
+
+        mesh (parallel.make_mesh; every rank builds the engine with the
+        same arguments and makes the same calls): the data-parallel
+        engine. Batches are (n, 2n, 4n) rows for n ranks; each rank runs
+        its rows of every phase-1 and phase-2 call and the rows are
+        gathered, so every rank carries on with the whole batch (its host
+        glue and RNG streams stay identical) and returns every waveform.
+        The fused graph path is off, so phase 2 runs eagerly (kernel B1
+        on every rank). The engine runs on the mesh's device, whose type
+        `device` must name.
+
+        seq_parallel (needs a mesh; all three decoders): shard the
+        vocoder's FRAME axis over the ranks instead of the batch
+        (parallel/seqpar.py): one long chunk's decode latency. Batching is
+        the single-device engine's (inputs replicated); a frame bucket
+        decodes frame-sharded when it divides by the rank count into at
+        least max(32, the receptive field) frames per rank, else whole on
+        every rank (a warning at init lists those buckets)."""
+        if mesh is not None:
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"StyleTTS2(device={device!r}) on a mesh "
+                                 f"of {mesh.device} ranks")
+            device = mesh.device
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StyleTTS2(device='cuda'): no CUDA device is "
@@ -313,7 +359,29 @@ class StyleTTS2:
         self._fpt_ema: Optional[float] = None
         # single-chunk texts take the fused path; False forces two phases
         self.fused_enabled: bool = True
+        self.mesh = mesh
+        self.seq_parallel = bool(seq_parallel)
         self.batch_buckets: Tuple[int, ...] = BATCH_BUCKETS
+        if self.seq_parallel:
+            if mesh is None:
+                raise ValueError("seq_parallel requires a mesh")
+            from styletts2_tpu_torch.parallel import seqpar as SP
+
+            self._sp_margin = max(SP.DEFAULT_MARGIN,
+                                  SP.decoder_receptive_field(mp.decoder))
+            n = mesh.size
+            skipped = [fb for fb in self.cfg.tpu.frame_buckets
+                       if fb % n or fb // n < self._sp_margin]
+            if skipped:
+                warnings.warn(
+                    f"seq_parallel: frame buckets {skipped} are not "
+                    f"divisible by the {n}-rank mesh (or are < n * margin "
+                    f"{n * self._sp_margin}) and will decode whole on every "
+                    f"rank; set tpu.frame_buckets to multiples of {n} to "
+                    "cover them")
+        elif mesh is not None:
+            # every batch divides over the ranks
+            self.batch_buckets = (mesh.size, 2 * mesh.size, 4 * mesh.size)
         self.max_batch: int = self.batch_buckets[-1]
         self.dtype = (torch.bfloat16 if (decoder_dtype or
                                          self.cfg.tpu.decoder_dtype)
@@ -407,10 +475,22 @@ class StyleTTS2:
         return asr, f0, n_en, frame_mask
 
     def _decode(self, asr, f0, n_en, s, frame_mask) -> torch.Tensor:
-        """The decoder in the engine's dtype -> int16 PCM."""
+        """The decoder in the engine's dtype -> int16 PCM; frame-sharded
+        over the ranks (parallel/seqpar.py) under seq_parallel when the
+        frame bucket qualifies."""
         dt = self.dtype
-        wav = self.modules["decoder"](asr.to(dt), f0.float(), n_en.float(),
-                                      s.to(dt), frame_mask)
+        n_frames = frame_mask.shape[1]
+        if (self.seq_parallel and n_frames % self.mesh.size == 0
+                and n_frames // self.mesh.size >= self._sp_margin):
+            from styletts2_tpu_torch.parallel import seqpar as SP
+
+            wav = SP.sp_decoder_apply(
+                self.mesh, self.modules["decoder"], asr.to(dt), f0.float(),
+                n_en.float(), s.to(dt), margin=self._sp_margin,
+                n_valid=frame_mask.sum(dim=1))
+        else:
+            wav = self.modules["decoder"](asr.to(dt), f0.float(),
+                                          n_en.float(), s.to(dt), frame_mask)
         pcm = torch.clamp(wav[..., 0].float(), -1.0, 1.0) * 32767.0
         return pcm.to(torch.int16)
 
@@ -418,10 +498,31 @@ class StyleTTS2:
         with self._count_lock:  # the capture thread counts too
             self.phase2_calls += 1
 
+    @property
+    def _dp(self) -> bool:
+        """Data-parallel mode: a mesh, and its ranks split batch rows."""
+        return self.mesh is not None and not self.seq_parallel
+
+    @torch.inference_mode()
+    def _run_phase1(self, tokens, mask, s):
+        """_phase1 on the batch; data-parallel: on this rank's rows, then
+        every rank's rows gathered."""
+        if not self._dp:
+            return self._phase1(tokens, mask, s)
+        rows = self.mesh.rows(tokens.shape[0])
+        return tuple(self.mesh.gather_rows(
+            list(self._phase1(tokens[rows], mask[rows], s))))
+
     @torch.inference_mode()
     def _phase2(self, t_en, d, s, durs, n_frames: int) -> torch.Tensor:
+        """One counted phase-2 evaluation; data-parallel: of this rank's
+        rows, then every rank's PCM rows gathered."""
         self._count_eval()
-        return self._phase2_impl(t_en, d, s, durs, n_frames)
+        if not self._dp:
+            return self._phase2_impl(t_en, d, s, durs, n_frames)
+        rows = self.mesh.rows(t_en.shape[0])
+        return self.mesh.gather_rows([self._phase2_impl(
+            t_en[rows], d[rows], s, durs[rows], n_frames)])[0]
 
     def _fused_impl(self, tokens, mask, s, scal, noise, n_frames: int):
         """Single-dispatch synthesis: tokens -> (pcm int16 (B, 2 *
@@ -786,8 +887,8 @@ class StyleTTS2:
         d_of: List[Any] = [None] * n_chunks
         dur_of: List[Any] = [None] * n_chunks
         for gi, group in enumerate(groups):
-            t_en, d, dur = self._phase1(dev[2 * gi], dev[2 * gi + 1].bool(),
-                                        s_dev)
+            t_en, d, dur = self._run_phase1(dev[2 * gi],
+                                            dev[2 * gi + 1].bool(), s_dev)
             dur = _HostCopy(dur, self._copy_stream)
             for row, i in enumerate(group):
                 t_en_of[i] = (t_en, row)
@@ -860,12 +961,16 @@ class StyleTTS2:
 
         calls, host = [], []
         for fb, idxs in by_f.items():
-            for group in _partition_exact(idxs, self.batch_buckets):
-                bb = len(group)
+            # data-parallel: exact groups, then the remainder padded with
+            # copies of its last row up to the smallest batch that fits
+            for group in _partition_exact(idxs, self.batch_buckets,
+                                          pad_tail=self._dp):
+                bb = _bucket(self.batch_buckets, len(group))
+                rows_of = list(group) + [group[-1]] * (bb - len(group))
                 tb = max(tbs[piece_chunk[p]] for p in group)
-                srcs = [t_en_of[piece_chunk[p]] for p in group]
+                srcs = [t_en_of[piece_chunk[p]] for p in rows_of]
                 whole = all(piece_span[p] == (0, len(pred_of[piece_chunk[p]]))
-                            for p in group)
+                            for p in rows_of)
                 if (whole and srcs[0][0].shape[0] == bb
                         and all(x[0] is srcs[0][0] for x in srcs)
                         and [x[1] for x in srcs] == list(range(bb))):
@@ -875,7 +980,7 @@ class StyleTTS2:
                 else:
                     def rows(of):
                         out = []
-                        for p in group:
+                        for p in rows_of:
                             buf, row = of[piece_chunk[p]]
                             a, b = piece_span[p]
                             out.append(F.pad(buf[row, a:b],
@@ -883,7 +988,7 @@ class StyleTTS2:
                         return torch.stack(out)
                     t_en, d = rows(t_en_of), rows(d_of)
                 durs = np.zeros((bb, tb), np.int64)
-                for row, p in enumerate(group):
+                for row, p in enumerate(rows_of):
                     a, b = piece_span[p]
                     durs[row, : b - a] = pred_of[piece_chunk[p]][a:b]
                 calls.append((fb, group, t_en, d))
@@ -922,7 +1027,8 @@ class StyleTTS2:
                  stabilize: bool = True, n_merge: int = 16) -> np.ndarray:
         """Long-form synthesis: sentence chunking, rate stabilisation,
         4000-sample edge trims and silence padding per chunk. A single
-        chunk takes the fused path while `fused_enabled` is set."""
+        chunk takes the fused path while `fused_enabled` is set and the
+        engine has no mesh."""
         smooth = 0.2 if stabilize else 0.0
         chunks = split_into_chunks(phonem, n_merge=n_merge)
         if not chunks:
@@ -938,10 +1044,11 @@ class StyleTTS2:
     def _try_fused(self, chunks: List[str], style: Dict[str, Any],
                    t: float) -> Tuple[Optional[np.ndarray], Optional[int]]:
         """(the edged waveform or None, base_seed): a single chunk goes
-        through the fused path while `fused_enabled` is set. One seed draw
+        through the fused path while `fused_enabled` is set, without a
+        mesh (as in JAX: the mesh engines run two-phase). One seed draw
         per synthesis whichever path runs: the fused attempt and its
         two-phase fallback share it (None: the plan draws it)."""
-        if len(chunks) != 1 or not self.fused_enabled:
+        if len(chunks) != 1 or not self.fused_enabled or self.mesh is not None:
             return None, None
         base_seed = int(self._rng.integers(2 ** 63))
         wav = self._generate_fused(chunks[0], style, t=t, base_seed=base_seed)
@@ -1158,13 +1265,14 @@ class StyleTTS2:
                 tokens = torch.zeros(bb, tb, dtype=torch.int64,
                                      device=self.device)
                 mask = torch.ones(bb, tb, dtype=torch.bool, device=self.device)
-                t_en, d, _ = self._phase1(tokens, mask, s)
+                t_en, d, _ = self._run_phase1(tokens, mask, s)
                 durs = torch.ones(bb, tb, dtype=torch.int32,
                                   device=self.device)
                 for fbk in frame_buckets or fbs[:2]:
                     self._phase2(t_en, d, s, durs, fbk)
-                if bb != 1 or not self.fused_enabled \
-                        or self.device.type != "cuda":
+                if (bb != 1 or not self.fused_enabled
+                        or self.device.type != "cuda"
+                        or self.mesh is not None):
                     continue
                 for rate in (8, 4):
                     if rate * tb <= fbs[-1]:

@@ -6,6 +6,11 @@ Counterpart of styletts2_tpu/losses.py (reference losses.py:7-252). The
 normalisation, so each resolution is one call of kernel B2 per waveform on
 CUDA (6 per step), differentiable through `ops.mel_kernel.log_mel`. The
 median of TPRLS is torch's lower median, as in the reference.
+
+`mesh` (data-parallel ranks, each holding its rows of the global batch):
+the two losses that are not means over rows take the global batch's
+value and gradient: the MRSTFT ratio of batch sums (parallel.global_sum)
+and TPRLS's batch median (parallel.global_rows / global_loss).
 """
 
 from __future__ import annotations
@@ -16,11 +21,13 @@ import torch
 import torch.nn as nn
 
 from styletts2_tpu_torch.ops import stft as OPS
+from styletts2_tpu_torch.parallel import mesh as PM
 
 MRSTFT_RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
 
 
-def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor,
+                               mesh=None) -> torch.Tensor:
     """Spectral-convergence L1 over the 3 mel resolutions: the mean of
     ||y_mag - x_mag||_1 / ||y_mag||_1. x, y: (B, T) waveforms."""
     x = x.float()
@@ -31,7 +38,10 @@ def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor
                   n_mels=128)
         x_mag = OPS.preprocess_wave(x, **kw)
         y_mag = OPS.preprocess_wave(y, **kw)
-        total = total + (y_mag - x_mag).abs().sum() / y_mag.abs().sum()
+        diff, ref = (y_mag - x_mag).abs().sum(), y_mag.abs().sum()
+        if mesh is not None:
+            diff, ref = PM.global_sum(mesh, diff), PM.global_sum(mesh, ref)
+        total = total + diff / ref
     return total / len(MRSTFT_RESOLUTIONS)
 
 
@@ -61,8 +71,12 @@ def discriminator_adv_loss(disc_real, disc_fake) -> torch.Tensor:
 
 
 def _tprls_term(dr: torch.Tensor, dg: torch.Tensor,
-                tau: float = 0.04) -> torch.Tensor:
-    """Relativistic median loss (reference losses.py:131-147)."""
+                tau: float = 0.04, mesh=None) -> torch.Tensor:
+    """Relativistic median loss (reference losses.py:131-147); with a mesh
+    over the global batch's rows."""
+    if mesh is not None:
+        return PM.global_loss(mesh, _tprls_term(
+            *PM.global_rows(mesh, [dr.float(), dg.float()]), tau))
     diff = dr.float() - dg.float()
     m = torch.median(diff)  # lower median, as torch.median in the reference
     sel = dr.float() < dg.float() + m
@@ -72,42 +86,44 @@ def _tprls_term(dr: torch.Tensor, dg: torch.Tensor,
     return tau - torch.relu(tau - l_rel)
 
 
-def discriminator_tprls_loss(disc_real, disc_fake) -> torch.Tensor:
+def discriminator_tprls_loss(disc_real, disc_fake,
+                             mesh=None) -> torch.Tensor:
     loss = 0.0
     for dr, dg in zip(disc_real, disc_fake):
-        loss = loss + _tprls_term(dr, dg)
+        loss = loss + _tprls_term(dr, dg, mesh=mesh)
     return loss
 
 
-def generator_tprls_loss(disc_real, disc_fake) -> torch.Tensor:
+def generator_tprls_loss(disc_real, disc_fake, mesh=None) -> torch.Tensor:
     """The reference's generator TPRLS swaps the zip binding (losses.py:
     140-147), so its formula runs with dr = generated, dg = real; kept."""
     loss = 0.0
     for dr, dg in zip(disc_real, disc_fake):
-        loss = loss + _tprls_term(dg, dr)
+        loss = loss + _tprls_term(dg, dr, mesh=mesh)
     return loss
 
 
-def generator_loss(mpd, msd, y: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
+def generator_loss(mpd, msd, y: torch.Tensor, y_hat: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
     """Adversarial + feature matching + TPRLS over MPD and MSD (reference
     losses.py:149-168). y, y_hat: (B, T)."""
     df_r, df_g, ff_r, ff_g = mpd(y, y_hat)
     ds_r, ds_g, fs_r, fs_g = msd(y, y_hat)
     return (generator_adv_loss(df_g) + generator_adv_loss(ds_g)
             + feature_loss(ff_r, ff_g) + feature_loss(fs_r, fs_g)
-            + generator_tprls_loss(df_r, df_g)
-            + generator_tprls_loss(ds_r, ds_g))
+            + generator_tprls_loss(df_r, df_g, mesh)
+            + generator_tprls_loss(ds_r, ds_g, mesh))
 
 
-def discriminator_loss(mpd, msd, y: torch.Tensor,
-                       y_hat: torch.Tensor) -> torch.Tensor:
+def discriminator_loss(mpd, msd, y: torch.Tensor, y_hat: torch.Tensor,
+                       mesh=None) -> torch.Tensor:
     """Reference losses.py:170-190. y, y_hat: (B, T)."""
     df_r, df_g, _, _ = mpd(y, y_hat)
     ds_r, ds_g, _, _ = msd(y, y_hat)
     return (discriminator_adv_loss(df_r, df_g)
             + discriminator_adv_loss(ds_r, ds_g)
-            + discriminator_tprls_loss(df_r, df_g)
-            + discriminator_tprls_loss(ds_r, ds_g))
+            + discriminator_tprls_loss(df_r, df_g, mesh)
+            + discriminator_tprls_loss(ds_r, ds_g, mesh))
 
 
 class WavLMLoss:

@@ -118,8 +118,7 @@ class ASRS2S(nn.Module):
         attention (B, T+1, L))."""
         b, l, h = memory.shape
         if gen is not None:
-            masked = torch.rand(text.shape, generator=gen,
-                                device=text.device) < random_mask
+            masked = L.rand_rows(text.shape, gen, text.device) < random_mask
             text = torch.where(masked, torch.full_like(text, unk), text)
         emb = self.embedding(text)
         sos_emb = self.embedding.weight[sos][None, None, :].expand(

@@ -185,8 +185,13 @@ class AdaINResBlock1(nn.Module):
         split (the SLM round's masked synthesis under autograd: JAX gates
         its kernel on the fused weight): the plain formulation, AdaIN
         statistics over the mask's valid rows when a mask is given, which
-        autograd differentiates and which never calls B1."""
-        if n_valid is None or "weight_v" in self.convs1[0]._parameters:
+        autograd differentiates and which never calls B1. Inside a
+        sequence-parallel window (layers.seqpar_ctx) the plain masked route
+        too, as in JAX: the window's mask is an interval, not the valid
+        prefix B1 zeroes past, and its statistics are global (all-reduced),
+        not the kernel's prefix partial sums."""
+        if (n_valid is None or "weight_v" in self.convs1[0]._parameters
+                or L.seqpar_ctx() is not None):
             return self._plain(x, s, mask)
         if not self.packed1:
             raise RuntimeError("AdaINResBlock1.prepack() was not called")

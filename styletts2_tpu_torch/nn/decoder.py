@@ -4,8 +4,11 @@ source (here), iSTFTNet (nn/istftnet.py) and Vocos (nn/vocos.py).
 Counterpart of styletts2_tpu/nn/decoder.py: one shell dispatching on the
 config's decoder type. Inference (a frame mask given, no source draws:
 zero sine phase and zero noise, so the output is deterministic) runs the
-generator with per-stage valid-prefix masks, every AdaINResBlock1 conv
-pair of HiFi-GAN and iSTFTNet through kernel B1 on CUDA (nn/blocks.py).
+generator with per-stage valid-interval masks (a prefix under bucketed
+inference, an interior window on the edge ranks of a sequence-parallel
+decode, parallel/seqpar.py), every AdaINResBlock1 conv pair of HiFi-GAN
+and iSTFTNet through kernel B1 on CUDA outside such windows
+(nn/blocks.py).
 The D/G step (no frame mask, as JAX's step passes none) runs the plain
 differentiable formulation over the whole crop, with the sine source's
 random phase and noise passed in (`draw_source`; each generator's
@@ -38,11 +41,11 @@ def draw_source(gen: torch.Generator, b: int, length: int,
                 harmonic_num: int = 8, device=None) -> SourceDraws:
     """The sine source's random draws, with the JAX package's distributions:
     initial phases U[0, 1) (B, H+1) with the fundamental's at 0, and unit
-    normal noise (B, length, H+1)."""
+    normal noise (B, length, H+1); per row (layers.rand_rows)."""
     dim = harmonic_num + 1
-    rand_ini = torch.rand(b, dim, generator=gen, device=device)
+    rand_ini = L.rand_rows((b, dim), gen, device)
     rand_ini[:, 0] = 0.0
-    noise = torch.randn(b, length, dim, generator=gen, device=device)
+    noise = L.rand_rows((b, length, dim), gen, device, normal=True)
     return rand_ini, noise
 
 
@@ -134,11 +137,21 @@ class HiFiGANGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, s: torch.Tensor, f0_curve: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None,
-                source: Optional[SourceDraws] = None) -> torch.Tensor:
+                source: Optional[SourceDraws] = None,
+                har_source: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, T, C) features at mel rate, s (B, style), f0_curve (B, T)
-        f32 at mel rate, frame_mask (B, T) bool valid prefix at mel rate
+        f32 at mel rate, frame_mask (B, T) bool valid interval at mel rate
         (None: every frame valid, the plain route) -> wav
-        (B, T * prod(rates), 1)."""
+        (B, T * prod(rates), 1).
+
+        The valid region is a prefix under bucketed inference and an
+        interior window on the edge ranks of a sequence-parallel decode
+        (parallel/seqpar.py), so the stage masks are intervals from the
+        first valid index; the valid count B1 takes is a prefix length (B1
+        is gated off inside a seq-par window). har_source: the NSF source
+        (B, T * prod(rates), 1) computed by the caller (the seq-par decode
+        computes it from the whole F0 curve, whose sine phase is a global
+        cumsum, and passes this window's slice); None: from f0_curve."""
         rates = self.rates
         n_up = len(rates)
         n_k = len(self.kernel_sizes)
@@ -146,6 +159,7 @@ class HiFiGANGenerator(nn.Module):
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         if frame_mask is not None:
             n_val = frame_mask.sum(dim=1, dtype=torch.int32)
+            lo_val = frame_mask.to(torch.int32).argmax(dim=1).to(torch.int32)
 
         def stage(i):
             """(valid mask, valid count) at stage i's rate."""
@@ -153,15 +167,19 @@ class HiFiGANGenerator(nn.Module):
                 return None, None
             f = int(np.prod(rates[:i]))
             pos = torch.arange(frame_mask.shape[1] * f, dtype=torch.int32,
-                               device=x.device)
+                               device=x.device)[None, :]
             nv = n_val * f
-            return pos[None, :] < nv[:, None], nv
+            lo = (lo_val * f)[:, None]
+            return (pos >= lo) & (pos < lo + nv[:, None]), nv
 
         def keep(v, m):
             return v if m is None else torch.where(m[..., None], v, zero)
 
-        f0_up = OPS.interpolate_nearest(f0_curve[:, None, :], total_up)
-        har = self.m_source(f0_up.transpose(1, 2), total_up, source)
+        if har_source is None:
+            f0_up = OPS.interpolate_nearest(f0_curve[:, None, :], total_up)
+            har = self.m_source(f0_up.transpose(1, 2), total_up, source)
+        else:
+            har = har_source
         sample_mask, _ = stage(n_up)
         har = keep(har, sample_mask)
 
@@ -223,6 +241,7 @@ class Decoder(nn.Module):
         self.N_conv = L.wn(nn.Conv1d(1, 1, 3, stride=2, padding=1))
         self.asr_res = nn.ModuleList([L.wn(nn.Conv1d(dim_in, 64, 1))])
         self.generator = generator
+        self.cfg = cfg
 
     def prepack(self, dtype: torch.dtype) -> None:
         """Pack every kernel-B1 weight in the decoder dtype."""
@@ -233,7 +252,10 @@ class Decoder(nn.Module):
     def forward(self, asr: torch.Tensor, f0_curve: torch.Tensor,
                 n: torch.Tensor, s: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None,
-                source: Optional[SourceDraws] = None) -> torch.Tensor:
+                source: Optional[SourceDraws] = None,
+                har_source: Optional[torch.Tensor] = None,
+                seq_mask: Optional[torch.Tensor] = None,
+                seq_win: Optional[dict] = None) -> torch.Tensor:
         """asr (B, F, C) aligned text features at the half-mel rate, in the
         decoder dtype; f0_curve, n (B, 2F) f32 at mel rate; s (B, style) in
         the decoder dtype; frame_mask (B, F) bool valid prefix at the asr
@@ -241,7 +263,20 @@ class Decoder(nn.Module):
         weight norm split), or None (the D/G step: every frame valid, no
         kernel B1); source: the sine source's draws (None: zero phase and
         noise). Returns wav
-        (B, 2F * the generator's samples per mel frame, 1)."""
+        (B, 2F * the generator's samples per mel frame, 1).
+
+        A sequence-parallel window (parallel/seqpar.py) passes its valid
+        interval as frame_mask and one of: har_source (HiFi-GAN: the NSF
+        source's slice), seq_mask (Vocos: (B, F) in-sequence slots at the
+        asr rate, the iSTFT overlap-add's global grid) or seq_win
+        (iSTFTNet: the window descriptor, ISTFTNetGenerator.forward)."""
+        t = self.cfg.type
+        if t != "hifigan" and har_source is not None:
+            raise ValueError("har_source passthrough is hifigan-only")
+        if t != "vocos" and seq_mask is not None:
+            raise ValueError("seq_mask passthrough is vocos-only")
+        if t != "istftnet" and seq_win is not None:
+            raise ValueError("seq_win passthrough is istftnet-only")
         mel_mask = None
         if frame_mask is not None:
             mel_mask = torch.repeat_interleave(frame_mask, 2, dim=1)
@@ -258,4 +293,13 @@ class Decoder(nn.Module):
             x = torch.cat([x, asr_res, f0, nn_], dim=-1)
             x = blk(x, s, mask=frame_mask,
                     out_mask=mel_mask if blk.upsample else None)
-        return self.generator(x, s, f0_curve, mel_mask, source)
+        if t == "hifigan":
+            return self.generator(x, s, f0_curve, mel_mask, source,
+                                  har_source=har_source)
+        if t == "istftnet":
+            return self.generator(x, s, f0_curve, mel_mask, source,
+                                  seq_win=seq_win)
+        if seq_mask is not None:
+            seq_mask = torch.repeat_interleave(seq_mask, 2, dim=1)
+        return self.generator(x, s, f0_curve, mel_mask, source,
+                              seq_mask=seq_mask)

@@ -82,16 +82,39 @@ class ISTFTNetGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, s: torch.Tensor, f0_curve: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None,
-                source: Optional[SourceDraws] = None) -> torch.Tensor:
+                source: Optional[SourceDraws] = None,
+                seq_win: Optional[dict] = None) -> torch.Tensor:
         """x (B, T, C) features at mel rate, s (B, style), f0_curve (B, T)
         f32 at mel rate, frame_mask (B, T) bool valid prefix at mel rate
         (None: the plain route), source: the sine source's draws (None:
-        zero phase and noise) -> wav (B, T * prod(rates) * hop, 1) f32."""
+        zero phase and noise) -> wav (B, T * prod(rates) * hop, 1) f32.
+
+        seq_win (a sequence-parallel window, parallel/seqpar.py): the
+        generator runs on a haloed window of the global sequence, with
+        frame_mask its valid interval. A dict of
+          'har' (B, T * prod(rates) + 1, n_fft + 2): the window of the
+                harmonic source's STFT computed from the whole F0 curve
+                (its sine phase and its replicate-padded frames are
+                global), the window's +1 tail frame included;
+          'pad0' (T * prod(rates) + 1,) bool: the slot holding GLOBAL
+                reflection-padded position 0 (rank 0 only): the single
+                device prepends x[:, 1:2] to the whole sequence, so the
+                window prepends a placeholder edge frame (absorbed by the
+                halo margin) and this slot takes the true reflect value;
+          'mask_pad' (B, T * prod(rates) + 1): the last stage's validity
+                in reflection-padded coordinates;
+          'grid' (T * prod(rates) + 1,) bool: the slots inside the global
+                padded grid; the others add nothing to the overlap-add (a
+                single-device tensor has no such slots).
+        The source is not computed here then."""
         rates = self.rates
         n_up = len(rates)
         n_k = len(self.kernel_sizes)
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
-        har = self.source_features(f0_curve, source).to(x.dtype)
+        if seq_win is not None:
+            har = seq_win["har"].to(x.dtype)
+        else:
+            har = self.source_features(f0_curve, source).to(x.dtype)
         if frame_mask is not None:
             n_val = frame_mask.sum(dim=1, dtype=torch.int32)
 
@@ -108,12 +131,24 @@ class ISTFTNetGenerator(nn.Module):
             x = keep(L.leaky_relu(x, 0.1), m_in)
             x_source = L.conv1d(self.noise_convs[i], har)
             x = L.conv_transpose1d(up, x)
-            if last:  # ReflectionPad1d((1, 0))
+            if last and seq_win is None:  # ReflectionPad1d((1, 0))
                 x = torch.cat([x[:, 1:2], x], dim=1)
+            elif last:
+                # the pad is global: a placeholder edge frame, then the
+                # slot of global padded position 0 takes x[global 1],
+                # two slots to its right in the same window
+                x = torch.cat([x[:, :1], x], dim=1)
+                x = torch.where(seq_win["pad0"][None, :, None],
+                                torch.roll(x, -2, dims=1), x)
             m_out = nv_out = None
-            if frame_mask is not None:
+            rp = int(np.prod(rates[: i + 1]))
+            if seq_win is not None:
+                # the window's interval (no B1 inside a window)
+                m_out = (seq_win["mask_pad"] if last else
+                         torch.repeat_interleave(frame_mask, rp, dim=1))
+            elif frame_mask is not None:
                 # the reflection pad adds one valid row at the front
-                nv_out = n_val * int(np.prod(rates[: i + 1])) + int(last)
+                nv_out = n_val * rp + int(last)
                 m_out = prefix(x.shape[1], nv_out)
             x = x + self.noise_res[i](x_source, s, m_out, nv_out)
             xs = None
@@ -122,12 +157,14 @@ class ISTFTNetGenerator(nn.Module):
                 xs = r if xs is None else xs + r
             x = xs / n_k
             m_in = m_out
-        # the bucket-padding rows hold resblock bias and spill: zeroed so
+        # the bucket-padding rows hold resblock bias and spill, and a
+        # window's out-of-grid slots conv bias and spill: zeroed so
         # conv_post and the overlap-add see exact-length semantics
         x = keep(L.leaky_relu(x, 0.01), m_in)
         x = L.conv1d(self.conv_post, x).transpose(1, 2).float()
         half = self.n_fft // 2 + 1
         spec = torch.exp(x[:, :half])
         phase = torch.sin(x[:, half:])
-        return OPS.istft_conv(spec, phase, self.n_fft, self.hop,
-                              self.n_fft).transpose(1, 2)
+        grid = None if seq_win is None else seq_win["grid"]
+        return OPS.istft_conv(spec, phase, self.n_fft, self.hop, self.n_fft,
+                              frame_valid=grid).transpose(1, 2)

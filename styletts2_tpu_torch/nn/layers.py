@@ -14,6 +14,7 @@ f32 parameter set serves the f32 and the bf16 decoder.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -54,14 +55,64 @@ def weight_of(mod: nn.Module) -> torch.Tensor:
     return mod.weight
 
 
+# --- per-row random draws under data parallelism ---------------------------
+#
+# A data-parallel rank holds rows [rank * b, (rank + 1) * b) of the global
+# batch. While a `row_draws` context is active, every per-row draw
+# (dropout masks, the aligner's unk masking, the crop starts, the sine
+# source's phase and noise) is made at the global batch's shape from the
+# generator every rank holds in the same state, and this rank keeps its
+# rows: the ranks' masks differ as the rows do, the batch-level draws (the
+# soft/mono coin) agree, every generator stays in step, and N ranks draw
+# what one rank draws for the global batch. That needs every rank's
+# tensors in one shape (the data-parallel step pads the texts to the
+# ranks' widest first: parallel.pad_to_widest).
+
+_ROWS_TLS = threading.local()
+
+
+class row_draws:
+    """Context manager: per-row draws of the enclosed calls are this rank's
+    rows of a draw over every rank's rows (thread-local); mesh: the
+    data-parallel ranks (parallel.Mesh), or None for one process."""
+
+    def __init__(self, mesh):
+        self.rows = None if mesh is None else (mesh.rank, mesh.size)
+
+    def __enter__(self):
+        self._prev = getattr(_ROWS_TLS, "rows", None)
+        _ROWS_TLS.rows = self.rows
+        return self
+
+    def __exit__(self, *exc):
+        _ROWS_TLS.rows = self._prev
+        return False
+
+
+def rand_rows(shape, gen: Optional[torch.Generator], device=None,
+              normal: bool = False) -> torch.Tensor:
+    """torch.rand (normal: torch.randn) of `shape`, whose leading axis is
+    the batch, from `gen`; under `row_draws` this rank's rows of the draw
+    at the global batch."""
+    draw = torch.randn if normal else torch.rand
+    rows = getattr(_ROWS_TLS, "rows", None)
+    if rows is None or rows[1] == 1:
+        return draw(tuple(shape), generator=gen, device=device)
+    rank, size = rows
+    b = shape[0]
+    full = draw((b * size,) + tuple(shape[1:]), generator=gen, device=device)
+    return full[rank * b: (rank + 1) * b]
+
+
 def dropout(x: torch.Tensor, p: float,
             gen: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a mask drawn from `gen`; the identity when
-    `gen` is None (eval, or draws fixed) or p is 0."""
+    """Inverted dropout with a mask drawn from `gen` (per row, see
+    `rand_rows`); the identity when `gen` is None (eval, or draws fixed)
+    or p is 0."""
     if gen is None or p <= 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = rand_rows(x.shape, gen, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -133,16 +184,105 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+# --- sequence-parallel instance-norm statistics ----------------------------
+#
+# Inside a frame-sharded decode (parallel/seqpar.py) each rank holds a
+# haloed window [core +- margin] of the time axis, but the AdaIN instance
+# norms need statistics over the whole sequence. While a SeqParCtx is
+# active, every time-axis mean and variance here is taken over the rank's
+# CORE region only (the halo is other ranks' core data and must not count
+# twice) and all-reduced over the mesh. The context carries the window
+# geometry at the base (asr-frame) rate; a stage tensor is an integer
+# upsample of it, so the core interval scales with T.
+
+
+class SeqParCtx:
+    """mesh: the ranks to all-reduce over (parallel.mesh.Mesh); t_base: the
+    local window length at the base rate; [lo, hi): the core interval at
+    the base rate."""
+
+    __slots__ = ("mesh", "t_base", "lo", "hi")
+
+    def __init__(self, mesh, t_base: int, lo: int, hi: int):
+        self.mesh, self.t_base, self.lo, self.hi = mesh, t_base, lo, hi
+
+
+# thread-local, so a seq-par decode on one thread cannot leak its context
+# into a plain decode on another (the engine's background capture thread)
+_SEQPAR_TLS = threading.local()
+
+
+def seqpar_ctx() -> Optional[SeqParCtx]:
+    return getattr(_SEQPAR_TLS, "ctx", None)
+
+
+class seqpar_stats:
+    """Context manager installing a SeqParCtx for the enclosed calls."""
+
+    def __init__(self, ctx: SeqParCtx):
+        self.ctx = ctx
+
+    def __enter__(self):
+        self._prev = seqpar_ctx()
+        _SEQPAR_TLS.ctx = self.ctx
+        return self.ctx
+
+    def __exit__(self, *exc):
+        _SEQPAR_TLS.ctx = self._prev
+        return False
+
+
+def _seqpar_core_mask(t_local: int, device) -> torch.Tensor:
+    """(1, t_local, 1) f32 mask of this rank's core region at the rate
+    t_local implies relative to the context's base length.
+
+    rem == 1 is the reflection-padded grid (iSTFTNet's last stage prepends
+    ONE frame to the whole sequence): the global grid has f * T_base + 1
+    slots, each window carries one extra leading slot, and the standard
+    [lo * f, hi * f) core still tiles the grid except for the one extra
+    global tail slot, which the LAST rank claims."""
+    ctx = seqpar_ctx()
+    f, rem = divmod(t_local, ctx.t_base)
+    if rem not in (0, 1):
+        raise ValueError(
+            f"seq-par stats on T={t_local} not a multiple (or multiple+1, "
+            f"the reflection-padded grid) of the base window {ctx.t_base}")
+    pos = torch.arange(t_local, device=device)
+    core = (pos >= ctx.lo * f) & (pos < ctx.hi * f)
+    if rem == 1 and ctx.mesh.rank == ctx.mesh.size - 1:
+        core = core | (pos == ctx.hi * f)
+    return core.to(torch.float32)[None, :, None]
+
+
 def masked_stats(xf: torch.Tensor, m: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-pass masked mean and biased variance over the T axis of a
-    (B, T, C) f32 tensor; m: (B, T, 1) f32 or None."""
+    (B, T, C) f32 tensor; m: (B, T, 1) f32 or None. Under a SeqParCtx the
+    statistics are global: the (sum, count) of the core regions are
+    all-reduced, then the centred sum of squares (two passes, as on one
+    device)."""
+    ctx = seqpar_ctx()
+    if ctx is not None:
+        core = _seqpar_core_mask(xf.shape[1], xf.device)
+        m = core if m is None else m * core
     if m is None:
         mean = xf.mean(dim=1, keepdim=True)
         return mean, ((xf - mean) ** 2).mean(dim=1, keepdim=True)
-    n = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
-    mean = (xf * m).sum(dim=1, keepdim=True) / n
-    return mean, (torch.square(xf - mean) * m).sum(dim=1, keepdim=True) / n
+    if ctx is None:
+        n = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
+        mean = (xf * m).sum(dim=1, keepdim=True) / n
+        return mean, (torch.square(xf - mean) * m).sum(dim=1,
+                                                      keepdim=True) / n
+    c = xf.shape[2]
+    sn = torch.cat([(xf * m).sum(dim=1, keepdim=True),
+                    m.sum(dim=1, keepdim=True).expand(xf.shape[0], 1, 1)],
+                   dim=-1)
+    ctx.mesh.all_reduce(sn)
+    n = torch.clamp(sn[..., c:], min=1.0)
+    mean = sn[..., :c] / n
+    v = (torch.square(xf - mean) * m).sum(dim=1, keepdim=True)
+    ctx.mesh.all_reduce(v)
+    return mean, v / n
 
 
 class AdaIN1d(nn.Module):

@@ -35,6 +35,7 @@ from styletts2_tpu_torch.nn import layers as L
 from styletts2_tpu_torch.nn import wavlm as WL
 from styletts2_tpu_torch.nn.discriminators import WavLMDiscriminator
 from styletts2_tpu_torch.ops import stft as OPS
+from styletts2_tpu_torch.parallel import mesh as PM
 
 
 def soft_alignment_from_durations(dur_logits: torch.Tensor,
@@ -110,10 +111,18 @@ class SLMAdversarialTrainer:
     trained = ("predictor", "decoder")  # JAX's trained_modules
 
     def __init__(self, cfg, multi_opt, wl: LO.WavLMLoss, scale: float = 0.01,
-                 sig: float = 1.5):
+                 sig: float = 1.5, mesh=None):
         from styletts2_tpu_torch.optim import make_adamw
 
         self.cfg = cfg
+        # data-parallel ranks (parallel.Mesh): each round runs on this
+        # rank's rows, its gradients (predictor and decoder; the head's,
+        # whose AdamW state must stay in step) and losses averaged over
+        # the ranks, the source drawn per row (layers.row_draws). The
+        # round draws nothing at the texts' width and masks padded tokens
+        # out exactly, so ranks whose texts pad to different widths need
+        # no common width here (the D/G step pads them: pad_to_widest)
+        self.mesh = mesh
         self.multi_opt = multi_opt
         self.wl = wl
         self.scale = scale
@@ -156,32 +165,42 @@ class SLMAdversarialTrainer:
         """One SLM round on a batch: {"slm_g", "slm_d"} as device scalars.
         gen draws the sine source's phase and noise unless `source` fixes
         them; times: a train.PhaseTimes, marked "slm_g" and "slm_d"."""
+        mesh = self.mesh
         if source is None:
             spf = mods["decoder"].generator.source_samples_per_frame
             if spf:
-                source = DE.draw_source(gen, texts.shape[0],
-                                        2 * crop * spf, device=waves.device)
+                with L.row_draws(mesh):
+                    source = DE.draw_source(gen, texts.shape[0],
+                                            2 * crop * spf,
+                                            device=waves.device)
         if times is not None:
             times.start()
         g_loss, y_pred, grads = self.generator_grads(
             mods, texts, text_lengths, waves, crop, source)
+        if mesh is not None:
+            TT.sync_grads(mesh, grads)
         TT._apply(self.multi_opt, mods, self.trained, grads)
         TT._mark(times, "slm_g")
         d_loss, d_grads = self.discriminator_grads(waves, y_pred, crop)
+        d_grads = list(d_grads)
+        if mesh is not None:
+            TT.sync_grads(mesh, {"wavlm_d": d_grads})
         for p, g in zip(self.wl.wd.parameters(), d_grads):
             p.grad = g
         self.wd_opt.step()
         self.wd_opt.zero_grad(set_to_none=True)
         TT._mark(times, "slm_d")
-        return {"slm_g": g_loss, "slm_d": d_loss}
+        out = {"slm_g": g_loss, "slm_d": d_loss}
+        return out if mesh is None else PM.mean_metrics(mesh, out)
 
 
-def build_trainer(cfg, multi_opt, device):
+def build_trainer(cfg, multi_opt, device, mesh=None):
     """The SLM trainer of `cfg.slmadv_params` (styletts2_tpu/train_loop.py
     :180-212): wavlm-base-plus from the local HF state dict at
     `wavlm_path`, or seeded random weights when `allow_random_wavlm`
     (smoke runs only; a warning), else a RuntimeError; the head seeded,
-    weight norm split."""
+    weight norm split. mesh: data-parallel ranks (see
+    SLMAdversarialTrainer)."""
     sp = cfg.slmadv_params
     wl_cfg = WL.WavLMConfig()
     wavlm = WL.WavLM(wl_cfg)
@@ -206,4 +225,4 @@ def build_trainer(cfg, multi_opt, device):
     W.split_weight_norm(wd)
     wd.to(device).train()
     return SLMAdversarialTrainer(cfg, multi_opt, LO.WavLMLoss(wavlm, wd),
-                                 scale=sp.scale, sig=sp.sig)
+                                 scale=sp.scale, sig=sp.sig, mesh=mesh)

@@ -64,11 +64,15 @@ class VocosGenerator(nn.Module):
     def forward(self, x: torch.Tensor, s: torch.Tensor,
                 f0_curve: Optional[torch.Tensor] = None,
                 frame_mask: Optional[torch.Tensor] = None,
-                source=None) -> torch.Tensor:
+                source=None,
+                seq_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, T, C) features at mel rate, s (B, style), frame_mask (B, T)
         bool valid frames or None; the F0 curve and source draws are not
         used (the decoder's generator interface) -> wav (B, T * hop, 1)
-        f32."""
+        f32. seq_mask: (B, T) in-sequence slots of a sequence-parallel
+        window (parallel/seqpar.py): the others add neither audio nor
+        window envelope to the overlap-add. Unlike frame_mask's padded
+        frames, which do add to it, as on one device."""
         for blk in self.convnext:
             x = blk(x, s, frame_mask)
         ln = self.final_layer_norm
@@ -77,5 +81,6 @@ class VocosGenerator(nn.Module):
         mag, phase = h.chunk(2, dim=1)
         mag = torch.clamp(torch.exp(mag), max=1e2)
         wav = OPS.istft_vocos(mag * torch.cos(phase), mag * torch.sin(phase),
-                              self.n_fft, self.hop, self.n_fft)
+                              self.n_fft, self.hop, self.n_fft,
+                              frame_valid=seq_mask)
         return wav[..., None]

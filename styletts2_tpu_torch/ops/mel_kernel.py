@@ -106,21 +106,28 @@ def _launch(wave: torch.Tensor, sr: int, n_fft: int, win_length: int,
     """One launch of kernel B2 on a CUDA (B, T) f32 wave."""
     from styletts2_tpu_torch.ops import _build
 
-    lib = _build.load("mel")
-    b = wave.shape[0]
-    frames = S.frame_signal(wave.detach(), n_fft, hop_length).contiguous()
-    n_frames = frames.shape[1]
-    cos_p, sin_p, fb_p = _device_bases(sr, n_fft, win_length, n_mels,
-                                       wave.device)
-    rows = b * n_frames
-    partial = torch.empty(cos_p.shape[1] // TF, rows, fb_p.shape[1],
-                          dtype=torch.float32, device=wave.device)
-    out = torch.empty(rows, n_mels, dtype=torch.float32, device=wave.device)
-    stream = torch.cuda.current_stream(wave.device).cuda_stream
-    err = lib.log_mel(frames.data_ptr(), cos_p.data_ptr(), sin_p.data_ptr(),
-                      fb_p.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                      rows, n_fft, cos_p.shape[1], n_mels, mean, std, stream)
-    if err != 0:
-        raise RuntimeError(f"log_mel kernel launch failed: CUDA error {err}")
+    # the C side sets its shared-memory attribute on the thread's current
+    # device: make it the wave's for the launch
+    with torch.cuda.device(wave.device):
+        lib = _build.load("mel")
+        b = wave.shape[0]
+        frames = S.frame_signal(wave.detach(), n_fft,
+                                hop_length).contiguous()
+        n_frames = frames.shape[1]
+        cos_p, sin_p, fb_p = _device_bases(sr, n_fft, win_length, n_mels,
+                                           wave.device)
+        rows = b * n_frames
+        partial = torch.empty(cos_p.shape[1] // TF, rows, fb_p.shape[1],
+                              dtype=torch.float32, device=wave.device)
+        out = torch.empty(rows, n_mels, dtype=torch.float32,
+                          device=wave.device)
+        stream = torch.cuda.current_stream(wave.device).cuda_stream
+        err = lib.log_mel(frames.data_ptr(), cos_p.data_ptr(),
+                          sin_p.data_ptr(), fb_p.data_ptr(),
+                          partial.data_ptr(), out.data_ptr(), rows, n_fft,
+                          cos_p.shape[1], n_mels, mean, std, stream)
+        if err != 0:
+            raise RuntimeError(f"log_mel kernel launch failed: CUDA error "
+                               f"{err}")
     launch_count.add("log_mel")
     return out.view(b, n_frames, n_mels).transpose(1, 2)

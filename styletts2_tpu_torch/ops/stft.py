@@ -17,7 +17,7 @@ from __future__ import annotations
 import functools
 import math
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -182,35 +182,56 @@ def stft_mag_phase(x: torch.Tensor, n_fft: int, hop_length: int,
 
 
 def istft_conv(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
-               hop_length: int, win_length: int) -> torch.Tensor:
+               hop_length: int, win_length: int,
+               frame_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference's CustomSTFT.inverse: (B, n_fft // 2 + 1, n_frames)
     magnitude and phase -> (B, 1, L) f32 waveform. The frames are the real
     and imaginary parts through the windowed inverse-DFT bases, their
     difference overlap-added with no window-envelope division, trimmed by
-    n_fft // 2 at both ends (center=True)."""
+    n_fft // 2 at both ends (center=True).
+
+    frame_valid: optional (n_frames,) or (B, n_frames) bool; frames marked
+    False add nothing to the overlap-add, as if their slots did not exist
+    (a sequence-parallel window's slots outside the global grid; with no
+    envelope division, zeroing the frames is the whole of it)."""
     real = magnitude * torch.cos(phase)
     imag = magnitude * torch.sin(phase)
     cos_b, sin_b = idft_bases(n_fft, win_length, magnitude.device)
     frames = (torch.matmul(real.transpose(1, 2), cos_b)
               - torch.matmul(imag.transpose(1, 2), sin_b))
+    if frame_valid is not None:
+        fv = frame_valid if frame_valid.dim() == 2 else frame_valid[None]
+        frames = frames * fv[..., None].to(frames.dtype)
     pad = n_fft // 2
     return overlap_add(frames, hop_length)[:, None, pad:-pad]
 
 
 def istft_vocos(spec_real: torch.Tensor, spec_imag: torch.Tensor,
-                n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
+                n_fft: int, hop_length: int, win_length: int,
+                frame_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Vocos's ISTFT with padding 'same': (B, n_fft // 2 + 1, n_frames)
     real and imaginary parts -> (B, L) f32: irfft as matmuls (conjugate
     symmetry folded into the bases), windowed overlap-add, division by the
     squared window's overlap-add (at least 1e-11), trimmed by
-    (win - hop) // 2 at both ends."""
+    (win - hop) // 2 at both ends.
+
+    frame_valid: optional (B, n_frames) bool; frames marked False add
+    neither audio nor window envelope, as if their slots did not exist
+    (a sequence-parallel window's slots outside the global sequence; a
+    single-device call has none)."""
     cos_b, sin_b = idft_bases(n_fft, win_length, spec_real.device,
                               onesided=True)
     frames = (torch.matmul(spec_real.transpose(1, 2), cos_b)
               - torch.matmul(spec_imag.transpose(1, 2), sin_b))
+    if frame_valid is None:
+        env = _window_envelope(frames.shape[1], win_length, hop_length,
+                               spec_real.device)
+    else:
+        fv = frame_valid[..., None].to(frames.dtype)  # (B, n_frames, 1)
+        frames = frames * fv
+        w = hann_window(win_length, win_length).to(spec_real.device)
+        env = overlap_add(w * w * fv, hop_length)
     y = overlap_add(frames, hop_length)
-    env = _window_envelope(frames.shape[1], win_length, hop_length,
-                           spec_real.device)
     y = y / torch.clamp(env, min=1e-11)
     pad = (win_length - hop_length) // 2
     return y[:, pad:-pad] if pad > 0 else y

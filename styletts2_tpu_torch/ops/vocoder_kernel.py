@@ -161,23 +161,27 @@ def ada_snake_conv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         if v is not None and v.data_ptr() % 16:
             raise ValueError(f"ada_snake_conv kernel needs 16-byte aligned "
                              f"{name}")
-    lib = _build.load("vocoder")
-    out = torch.empty_like(x)
-    stats = None
-    if out_stats:
-        rows = lib.ada_snake_conv_rows_per_block(c, is_bf16)
-        stats = torch.empty(b, 2, c, -(-t // rows), dtype=torch.float32,
-                            device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ada_snake_conv(
-        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), alpha.data_ptr(),
-        w.data_ptr(), bias.data_ptr(), n_valid.data_ptr(),
-        None if residual is None else residual.data_ptr(), out.data_ptr(),
-        None if stats is None else stats.data_ptr(), b, t, c, w.shape[0],
-        int(dilation), is_bf16, stream)
-    if err != 0:
-        raise RuntimeError(f"ada_snake_conv kernel launch failed: CUDA "
-                           f"error {err}")
+    # the C side sizes its grid and sets its shared-memory attribute on
+    # the thread's current device: make it x's for the launch
+    with torch.cuda.device(x.device):
+        lib = _build.load("vocoder")
+        out = torch.empty_like(x)
+        stats = None
+        if out_stats:
+            rows = lib.ada_snake_conv_rows_per_block(c, is_bf16)
+            stats = torch.empty(b, 2, c, -(-t // rows), dtype=torch.float32,
+                                device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ada_snake_conv(
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            alpha.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            n_valid.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), None if stats is None else stats.data_ptr(), b,
+            t, c, w.shape[0], int(dilation), is_bf16, stream)
+        if err != 0:
+            raise RuntimeError(f"ada_snake_conv kernel launch failed: CUDA "
+                               f"error {err}")
     launch_count.add("ada_snake_conv")
     if not out_stats:
         return out

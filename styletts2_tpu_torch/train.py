@@ -24,6 +24,16 @@ route (no frame mask, so no kernel B1), as JAX's step passes no n_valid.
 `remat` recomputes the decoder synthesis and the generator-side
 discriminators in the backward (torch.utils.checkpoint); `grad_accum`
 averages each step's gradients over equal micro-batches.
+
+Data parallelism (`make_parallel_train_step`, styletts2_tpu/train.py's
+SPMD step): each rank steps on its rows of the global batch and the step
+computes the global batch's math: every module group's gradients
+averaged over the ranks in one flat all-reduce (the gradients come from
+torch.autograd.grad, so no DDP hook fires), the losses that are not means
+over rows made global (loss_mono's maxima, the MRSTFT ratio of sums,
+TPRLS's median: losses.py), the texts padded to the ranks' widest and
+per-row draws made at the global batch from a generator every rank holds
+in one state (layers.row_draws), metrics averaged.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from styletts2_tpu_torch.nn import decoder as DE
 from styletts2_tpu_torch.nn import layers as L
 from styletts2_tpu_torch.ops import align as ALN
 from styletts2_tpu_torch.ops import stft as OPS
+from styletts2_tpu_torch.parallel import mesh as PM
 
 GEN_MODULES = ("predictor", "style_encoder", "decoder", "text_encoder",
                "text_aligner")
@@ -215,7 +226,7 @@ def generator_forward(mods, batch: Batch, mels: torch.Tensor,
     if draws.starts is not None:
         starts = draws.starts.to(dev)
     else:
-        u = torch.rand(b, generator=gen, device=dev)
+        u = L.rand_rows((b,), gen, dev)
         starts = torch.minimum((u * (max_start + 1).float()).long(),
                                max_start)
     en = _crop(asr, starts, crop_frames)
@@ -253,9 +264,13 @@ def generator_losses(mods, batch: Batch, mels: torch.Tensor,
                      gen: Optional[torch.Generator], cfg: ModelConfig,
                      lp: LossParams, crop_frames: int, train: bool = True,
                      hop: int = 300, remat: bool = False,
-                     draws: Optional[Draws] = None):
+                     draws: Optional[Draws] = None, mesh=None):
     """All generator-side losses (reference train.py:279-315), batched and
     masked. remat also recomputes the generator-side MPD/MSD forwards.
+    mesh: the data-parallel ranks (batch = this rank's rows): loss_mono's
+    normaliser takes the global batch's maxima, and the MRSTFT ratio and
+    TPRLS's median the global batch's sums and rows (losses.py), so the
+    ranks' mean of every loss and of its gradients is the global batch's.
     Returns (g_loss, (y_rec, wav, metrics))."""
     y_rec, wav, aux = generator_forward(mods, batch, mels, gen, cfg,
                                         crop_frames, train, hop, remat, draws)
@@ -265,12 +280,13 @@ def generator_losses(mods, batch: Batch, mels: torch.Tensor,
 
     loss_f0 = smooth_l1(aux["f0_real"], aux["f0_fake"]) / 10.0
     loss_norm = smooth_l1(aux["n_real"], aux["n_fake"])
-    loss_mel = LO.multi_resolution_stft_loss(y_rec, wav)
+    loss_mel = LO.multi_resolution_stft_loss(y_rec, wav, mesh)
     if remat:
         loss_gen = checkpoint(LO.generator_loss, mods["mpd"], mods["msd"],
-                              wav, y_rec, use_reentrant=False)
+                              wav, y_rec, mesh, use_reentrant=False)
     else:
-        loss_gen = LO.generator_loss(mods["mpd"], mods["msd"], wav, y_rec)
+        loss_gen = LO.generator_loss(mods["mpd"], mods["msd"], wav, y_rec,
+                                     mesh)
 
     # duration + CE losses (train.py:284-299), masked batched forms
     dur_logits = aux["dur_logits"].float()
@@ -306,8 +322,11 @@ def generator_losses(mods, batch: Batch, mels: torch.Tensor,
     # F.l1_loss over tensors padded to the batch max (train.py:307): sum
     # over valid / (B * maxT * maxL_half)
     mono_diff = torch.abs(aux["s2s_attn"] - aux["s2s_attn_mono"]).sum()
-    denom = (b * batch.input_lengths.max()
-             * (batch.mel_lengths // 2).max()).float()
+    maxima = torch.stack([batch.input_lengths.max(),
+                          (batch.mel_lengths // 2).max()])
+    if mesh is not None:
+        mesh.all_reduce(maxima, "max")
+    denom = (b * maxima[0] * maxima[1]).float()
     loss_mono = mono_diff / denom * 10.0
 
     g_loss = (lp.lambda_mel * loss_mel + lp.lambda_F0 * loss_f0
@@ -336,13 +355,16 @@ def _grads(loss: torch.Tensor, mods, keys: Sequence[str]
     return out
 
 
-def make_grad_fns(cfg: Config, crop_frames: Optional[int] = None):
+def make_grad_fns(cfg: Config, crop_frames: Optional[int] = None,
+                  mesh=None):
     """(d_grads, g_grads) for one (micro-)batch.
 
     d_grads(mods, batch, gen, draws) -> (d_loss, {module: grads}) over
     DISC_MODULES; g_grads(mods, batch, gen, draws) -> (metrics incl.
     g_loss, {module: grads}) over GEN_MODULES. The same generator state
-    (or the same draws) reproduces the identical generator forward."""
+    (or the same draws) reproduces the identical generator forward.
+    mesh: data-parallel ranks (see generator_losses); the gradients stay
+    this rank's."""
     mp = cfg.model_params
     lp = cfg.loss_params
     sp = cfg.preprocess_params.spect_params
@@ -358,7 +380,8 @@ def make_grad_fns(cfg: Config, crop_frames: Optional[int] = None):
             y_rec, wav, _ = generator_forward(mods, batch, mels, gen, mp,
                                               crop, True, sp.hop_length,
                                               draws=draws)
-        d_loss = LO.discriminator_loss(mods["mpd"], mods["msd"], wav, y_rec)
+        d_loss = LO.discriminator_loss(mods["mpd"], mods["msd"], wav, y_rec,
+                                       mesh)
         return d_loss.detach(), _grads(d_loss, mods, DISC_MODULES)
 
     def g_grads(mods, batch: Batch, gen, draws=None):
@@ -366,7 +389,7 @@ def make_grad_fns(cfg: Config, crop_frames: Optional[int] = None):
         mels = compute_mels(batch.waves, mp, sp)
         g_loss, (_, _, metrics) = generator_losses(
             mods, batch, mels, gen, mp, lp, crop, True, sp.hop_length,
-            remat, draws)
+            remat, draws, mesh)
         grads = _grads(g_loss, mods, GEN_MODULES)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["g_loss"] = g_loss.detach()
@@ -402,6 +425,13 @@ def _accumulate(fn: Callable, mods, batch: Batch, gen, accum: int,
     return aux, {k: [g / accum for g in gs] for k, gs in grads.items()}
 
 
+def sync_grads(mesh, grads: Dict[str, List[torch.Tensor]]) -> None:
+    """Average a module group's gradients over the data-parallel ranks in
+    place, as one flat all-reduce (the gradients come from
+    torch.autograd.grad, so no DDP hook would fire)."""
+    mesh.all_reduce_mean([g for gs in grads.values() for g in gs])
+
+
 def _apply(multi_opt, mods, keys, grads) -> None:
     for k in keys:
         for p, g in zip(mods[k].parameters(), grads[k]):
@@ -409,14 +439,17 @@ def _apply(multi_opt, mods, keys, grads) -> None:
         multi_opt.step(k)
 
 
-def make_step_pair(cfg: Config, multi_opt, crop_frames: Optional[int] = None):
+def make_step_pair(cfg: Config, multi_opt, crop_frames: Optional[int] = None,
+                   mesh=None):
     """(d_step, g_step), each one module group's gradients and its AdamW
     updates. d_step updates the discriminators on detached audio; g_step
     must run after it, against the updated discriminators, with the same
     generator state. cfg.tpu.grad_accum > 1 averages the gradients over
-    that many micro-batches before the one update."""
+    that many micro-batches before the one update. mesh: data-parallel
+    ranks, each stepping on its rows; each group's gradients and the
+    losses are averaged over the ranks before the update."""
     accum = cfg.tpu.grad_accum
-    d_grads, g_grads = make_grad_fns(cfg, crop_frames)
+    d_grads, g_grads = make_grad_fns(cfg, crop_frames, mesh)
 
     def run(fn, mods, batch, gen, draws):
         if accum == 1:
@@ -426,6 +459,10 @@ def make_step_pair(cfg: Config, multi_opt, crop_frames: Optional[int] = None):
     def d_step(mods, batch: Batch, gen, draws=None, times=None):
         d_loss, grads = run(d_grads, mods, batch, gen, draws)
         _mark(times, "d_grads")
+        if mesh is not None:
+            sync_grads(mesh, grads)
+            d_loss = PM.mean_metrics(mesh, {"d": d_loss})["d"]
+            _mark(times, "d_sync")
         _apply(multi_opt, mods, DISC_MODULES, grads)
         _mark(times, "d_opt")
         return d_loss
@@ -433,6 +470,10 @@ def make_step_pair(cfg: Config, multi_opt, crop_frames: Optional[int] = None):
     def g_step(mods, batch: Batch, gen, draws=None, times=None):
         metrics, grads = run(g_grads, mods, batch, gen, draws)
         _mark(times, "g_grads")
+        if mesh is not None:
+            sync_grads(mesh, grads)
+            metrics = PM.mean_metrics(mesh, metrics)
+            _mark(times, "g_sync")
         _apply(multi_opt, mods, GEN_MODULES, grads)
         _mark(times, "g_opt")
         return metrics
@@ -443,18 +484,47 @@ def make_step_pair(cfg: Config, multi_opt, crop_frames: Optional[int] = None):
 def make_train_step(cfg: Config, multi_opt, crop_frames: Optional[int] = None):
     """train_step(mods, batch, gen, draws=None, times=None) -> metrics: the
     D step, then the G step from the generator state the D step started
-    from (reference train.py:272-328). times: a PhaseTimes to fill."""
-    d_step, g_step = make_step_pair(cfg, multi_opt, crop_frames)
+    from (reference train.py:272-328), in one process. times: a
+    PhaseTimes to fill."""
+    return _train_step(cfg, multi_opt, crop_frames, None)
+
+
+def make_parallel_train_step(cfg: Config, multi_opt, mesh,
+                             crop_frames: Optional[int] = None):
+    """The data-parallel D/G step over `mesh` (styletts2_tpu/train.py
+    make_parallel_train_step): train_step(mods, batch, gen, draws=None,
+    times=None) with `batch` (and `draws`) this rank's rows of the global
+    batch (parallel.shard_batch, or the per-rank loader's) and `gen` in
+    the same state on every rank. It computes the global batch's step:
+    the texts padded to the ranks' widest (parallel.pad_to_widest: the
+    per-row draws then have the global batch's shape on every rank), each
+    module group's gradients averaged over the ranks (one flat all-reduce
+    each, D and G), loss_mono normalised by the global maxima, per-row
+    draws made at the global batch and sliced (layers.row_draws: dropout
+    masks differ across ranks, the soft/mono coin agrees and the
+    generators stay in step), the metrics averaged. Parameters and
+    optimizer states must start equal on every rank; they then stay
+    equal. With the draws fixed and dropout off, N ranks give what one
+    rank gives on the global batch, up to the all-reduce's rounding."""
+    return _train_step(cfg, multi_opt, crop_frames, mesh)
+
+
+def _train_step(cfg: Config, multi_opt, crop_frames: Optional[int], mesh):
+    d_step, g_step = make_step_pair(cfg, multi_opt, crop_frames, mesh)
 
     def train_step(mods, batch: Batch, gen: torch.Generator,
                    draws: Optional[Draws] = None,
                    times: Optional[PhaseTimes] = None) -> Dict[str, Any]:
+        if mesh is not None:
+            batch = replace(batch, texts=PM.pad_to_widest(
+                mesh, batch.texts, fixed=(batch.waves,)))
         state = gen.get_state()
         if times is not None:
             times.start()
-        d_loss = d_step(mods, batch, gen, draws, times)
-        gen.set_state(state)
-        metrics = g_step(mods, batch, gen, draws, times)
+        with L.row_draws(mesh):
+            d_loss = d_step(mods, batch, gen, draws, times)
+            gen.set_state(state)
+            metrics = g_step(mods, batch, gen, draws, times)
         metrics["d_loss"] = d_loss
         return metrics
 

@@ -14,9 +14,24 @@ after every `slmadv_params.iter`-th step of an epoch, its `slm_g` / `slm_d`
 in that step's metrics; it needs `wavlm_path` (a local HF WavLMModel state
 dict) or `allow_random_wavlm` (smoke runs only). `--profile-dir` writes a
 torch.profiler trace of steps 10-14 of the first epoch. Runs on CUDA
-unless `device="cpu"` is passed. Multi-GPU is not ported yet.
+unless `device="cpu"` is passed.
+
+`--distributed`: data parallelism over torch.distributed, one process per
+GPU as `torchrun` launches it (parallel.init_distributed reads RANK,
+WORLD_SIZE and LOCAL_RANK; NCCL on CUDA, gloo on the CPU; `--dist-url`
+for another rendezvous, e.g. a file:// store). Every rank loads the
+checkpoint and then takes rank 0's parameters (a broadcast); the loaders
+hand each rank its own disjoint share of every duration bin
+(num_replicas = world size, rank); each D/G step and SLM round averages
+its gradients and losses over the ranks (train.make_parallel_train_step),
+so the ranks' parameters and optimizer states stay equal; validation
+sums over the ranks' shares. Rank 0 alone writes checkpoints, the log
+file, TensorBoard scalars and the profile trace. `tpu.dp`, when positive,
+must equal the world size.
 
 Usage: python -m styletts2_tpu_torch.train_loop -p configs/config.yaml
+       torchrun --nproc-per-node N -m styletts2_tpu_torch.train_loop \
+           --distributed -p configs/config.yaml
 """
 
 from __future__ import annotations
@@ -35,10 +50,15 @@ logger = logging.getLogger("styletts2_tpu_torch.train")
 PROFILE_STEPS = (10, 15)  # --profile-dir traces first <= i < stop
 
 
-def setup_logging(log_dir: str) -> logging.Handler:
-    os.makedirs(log_dir, exist_ok=True)
+def setup_logging(log_dir: str, write: bool = True
+                  ) -> Optional[logging.Handler]:
+    """Console logging, and the log file in log_dir when `write` (rank 0
+    of a distributed run, or a single-process run)."""
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s:%(asctime)s: %(message)s")
+    if not write:
+        return None
+    os.makedirs(log_dir, exist_ok=True)
     fh = logging.FileHandler(os.path.join(log_dir, "train.log"))
     fh.setLevel(logging.DEBUG)
     fh.setFormatter(logging.Formatter("%(levelname)s:%(asctime)s: %(message)s"))
@@ -77,8 +97,9 @@ class Trainer:
     (`evals`); `trace`, the --profile-dir trace's path."""
 
     def __init__(self, cfg, modules, opt, train_loader, val_loader, device,
-                 slm=None):
+                 slm=None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh  # data-parallel ranks (parallel.Mesh) or None
         self.modules = modules
         self.opt = opt
         self.train_loader = train_loader
@@ -95,12 +116,15 @@ class Trainer:
         """One step function per duration bin: its crop follows the
         reference's batch-min bound (train.py:235)."""
         from styletts2_tpu_torch.data.loader import bin_crop_frames
-        from styletts2_tpu_torch.train import make_train_step
+        from styletts2_tpu_torch.train import (make_parallel_train_step,
+                                              make_train_step)
 
         if bin_id not in self._train:
-            self._train[bin_id] = make_train_step(
-                self.cfg, self.opt,
-                crop_frames=bin_crop_frames(bin_id, self.cfg.max_len))
+            crop = bin_crop_frames(bin_id, self.cfg.max_len)
+            self._train[bin_id] = (
+                make_train_step(self.cfg, self.opt, crop)
+                if self.mesh is None else
+                make_parallel_train_step(self.cfg, self.opt, self.mesh, crop))
         return self._train[bin_id]
 
     def eval_step_for(self, bin_id: int):
@@ -138,9 +162,24 @@ def main(argv=None, device: str = "cuda") -> Trainer:
                     "the first epoch here")
     ap.add_argument("--nan-action", default="raise",
                     choices=["raise", "ignore"])
+    ap.add_argument("--distributed", action="store_true",
+                    help="data parallelism over torch.distributed, one "
+                    "process per GPU (launch with torchrun)")
+    ap.add_argument("--dist-url", default="env://",
+                    help="--distributed rendezvous: env:// (torchrun's "
+                    "MASTER_ADDR/MASTER_PORT) or a file:// store")
     args = ap.parse_args(argv)
 
-    dev = torch.device(device)
+    cfg = load_config(args.config_path)
+    mesh = None
+    if args.distributed:
+        from styletts2_tpu_torch.parallel import (broadcast_module,
+                                                  init_distributed, make_mesh)
+
+        # before anything touches CUDA: this rank's GPU becomes current
+        dev = init_distributed(device, init_method=args.dist_url)
+        mesh = make_mesh(cfg.tpu.dp, device=dev)
+    dev = mesh.device if mesh is not None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_loop: no CUDA device is available; pass "
                            "device='cpu' to train on the CPU")
@@ -148,12 +187,15 @@ def main(argv=None, device: str = "cuda") -> Trainer:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = load_config(args.config_path)
+    main_rank = mesh is None or mesh.rank == 0
     log_dir = cfg.log_dir
-    log_handler = setup_logging(log_dir)
-    shutil.copy(args.config_path,
-                os.path.join(log_dir, os.path.basename(args.config_path)))
-    writer = MetricsWriter(os.path.join(log_dir, "tensorboard"))
+    log_handler = setup_logging(log_dir, write=main_rank)
+    writer = None
+    if main_rank:
+        shutil.copy(args.config_path,
+                    os.path.join(log_dir, os.path.basename(args.config_path)))
+        writer = MetricsWriter(os.path.join(log_dir, "tensorboard"))
+    replicas = (1, 0) if mesh is None else (mesh.size, mesh.rank)
 
     symbol_dict = build_symbol_dict(cfg.symbol)
     print(f"\nFound: {len(symbol_dict) + 1} symbols")
@@ -161,12 +203,15 @@ def main(argv=None, device: str = "cuda") -> Trainer:
         train_list = f.readlines()
     with open(cfg.data_params.val_data, encoding="utf-8") as f:
         val_list = f.readlines()
+    # each rank draws its own disjoint share of every duration bin
     train_loader = build_dataloader(
         train_list, cfg.data_params.root_path, symbol_dict,
-        batch_size=cfg.batch_size, debug=cfg.debug)
+        batch_size=cfg.batch_size, debug=cfg.debug,
+        num_replicas=replicas[0], rank=replicas[1])
     val_loader = build_dataloader(
         val_list, cfg.data_params.root_path, symbol_dict, validation=True,
-        batch_size=cfg.batch_size, debug=cfg.debug)
+        batch_size=cfg.batch_size, debug=cfg.debug,
+        num_replicas=replicas[0], rank=replicas[1])
 
     if not cfg.pretrained_model:
         raise RuntimeError("Must have a pretrained!")  # train.py:170-171
@@ -177,6 +222,8 @@ def main(argv=None, device: str = "cuda") -> Trainer:
         cfg.training_strats.ignore_modules) - {""})
     mods.to(dev).train()
     mods["pitch_extractor"].eval().requires_grad_(False)
+    if mesh is not None:
+        broadcast_module(mesh, mods)  # every rank starts from rank 0's
     opt = MultiOptimizer(mods, lr=cfg.optimizer_params.lr,
                          ft_lr=cfg.optimizer_params.ft_lr)
     start_epoch, iters = 0, 0
@@ -194,10 +241,13 @@ def main(argv=None, device: str = "cuda") -> Trainer:
     if cfg.slmadv_params.enabled:
         from styletts2_tpu_torch.nn.slm import build_trainer
 
-        slm = build_trainer(cfg, opt, dev)
-    trainer = Trainer(cfg, mods, opt, train_loader, val_loader, dev, slm)
+        slm = build_trainer(cfg, opt, dev, mesh)
+        if mesh is not None:
+            broadcast_module(mesh, slm.wl.wd)
+    trainer = Trainer(cfg, mods, opt, train_loader, val_loader, dev, slm,
+                      mesh)
     tracer = (StepTrace(args.profile_dir, dev, *PROFILE_STEPS)
-              if args.profile_dir else None)
+              if args.profile_dir and main_rank else None)
     # every random draw of the steps comes from this one generator
     gen = torch.Generator(device=dev).manual_seed(1)
     best_loss = float("inf")
@@ -242,6 +292,7 @@ def main(argv=None, device: str = "cuda") -> Trainer:
             pending.append(trainer.history[-1])
             if (i + 1) % cfg.log_interval == 0:
                 fetch_pending()
+            if (i + 1) % cfg.log_interval == 0 and writer is not None:
                 m = trainer.history[-1]["metrics"]
                 writer.add_scalar("train/step_time_p50", timer.p50, iters)
                 logger.info(
@@ -253,7 +304,7 @@ def main(argv=None, device: str = "cuda") -> Trainer:
                     m["s2s"], m["mono"], time.time() - start_time)
                 for k, v in m.items():
                     writer.add_scalar(f"train/{k}", v, iters)
-            if iters % 1000 == 0:
+            if iters % 1000 == 0 and main_rank:
                 save_checkpoint(os.path.join(log_dir, "current_model.ckpt"),
                                 mods, opt.state_trees(), iters=iters,
                                 epoch=epoch)
@@ -273,24 +324,33 @@ def main(argv=None, device: str = "cuda") -> Trainer:
             for k in tot:
                 tot[k] += m[k]
             n_eval += 1
-        if n_eval:
+        if mesh is not None:  # every rank's share of the validation set
+            sums = torch.tensor([tot["mel"], tot["dur"], tot["f0"], n_eval],
+                                dtype=torch.float64, device=dev)
+            mesh.all_reduce(sums)
+            tot = dict(zip(("mel", "dur", "f0"), sums[:3].tolist()))
+            n_eval = int(sums[3])
+        if n_eval and main_rank:
             logger.info("Validation loss: %.3f, Dur loss: %.3f, F0 loss: %.3f",
                         tot["mel"] / n_eval, tot["dur"] / n_eval,
                         tot["f0"] / n_eval)
             writer.add_scalar("eval/mel_loss", tot["mel"] / n_eval, epoch + 1)
             writer.add_scalar("eval/dur_loss", tot["dur"] / n_eval, epoch + 1)
             writer.add_scalar("eval/F0_loss", tot["f0"] / n_eval, epoch + 1)
+        if n_eval:
             best_loss = min(best_loss, tot["mel"] / n_eval)
 
-        if (epoch + 1) % cfg.save_freq == 0:
+        if (epoch + 1) % cfg.save_freq == 0 and main_rank:
             save_checkpoint(
                 os.path.join(log_dir, f"epoch_{epoch:05d}.ckpt"),
                 mods, opt.state_trees(), iters=iters, epoch=epoch,
                 val_loss=tot["mel"] / max(n_eval, 1))
             logger.info("Saving..")
-    writer.close()
-    logger.removeHandler(log_handler)
-    log_handler.close()
+    if writer is not None:
+        writer.close()
+    if log_handler is not None:
+        logger.removeHandler(log_handler)
+        log_handler.close()
     return trainer
 
 

@@ -1,5 +1,6 @@
-"""styletts2_tpu_torch and chip_smoke.py import torch, never jax, and
-nothing of the styletts2_tpu package.
+"""styletts2_tpu_torch, chip_smoke.py and the multi-process tests' worker
+(tests/torch_parallel_worker.py) import torch, never jax, and nothing of
+the styletts2_tpu package.
 
 The import check runs in a fresh interpreter: conftest has already imported
 jax (and styletts2_tpu) into this process."""
@@ -19,6 +20,8 @@ import styletts2_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+sys.path.insert(0, "tests")
+importlib.import_module("torch_parallel_worker")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "styletts2_tpu" or m.startswith("styletts2_tpu."))
@@ -28,7 +31,8 @@ for must in ("train", "train_loop", "losses", "optim", "checkpoint",
              "convert", "flac", "ops.launch_count", "tools.serve_http",
              "tools.export_serving", "tools.app", "tools.demo_infer",
              "tools.convert_to_torch", "tools.strip_checkpoint",
-             "tools.extend_tokens"):
+             "tools.extend_tokens", "parallel", "parallel.mesh",
+             "parallel.seqpar"):
     assert pkg.__name__ + "." + must in names, must
 print(len(names))
 print("|".join(bad))
@@ -52,7 +56,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")
 
 def test_no_source_line_imports_jax_or_the_jax_package():
     offenders = []
-    for path in sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    for path in sorted(PKG.rglob("*.py")) + [
+            REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_worker.py"]:
         for i, line in enumerate(path.read_text().splitlines(), 1):
             m = _IMPORT.match(line)
             if not m:
