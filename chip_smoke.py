@@ -3,7 +3,7 @@
 check it.
 
     python3 chip_smoke.py [--json PATH] [--b1-only] [--deploy-only]
-                          [--slm-only] [--parallel-only]
+                          [--slm-only] [--parallel-only] [--onnx-only]
                           [--package-from DIR]
 
 Phases, each printed on its own line:
@@ -112,12 +112,23 @@ Phases, each printed on its own line:
      every rank's results equal; its times are two processes sharing one
      device, not speeds. B1 and B2 are held against their plain versions
      on the first call of each window (KernelProbe);
- 12. the kernels line (JSON), the card line, and the result line.
+ 12. ONNX ("[12 onnx]", onnx/): per decoder (HiFi-GAN, iSTFTNet, Vocos at
+     full width, seeded random weights, f32 decoder) the engine's modules
+     exported with `export_modules` (wall time, size) and evaluated by
+     `onnx.runtime.OnnxModel` on CUDA on the short text with phase 5's
+     style, at a speed that keeps it near 300 frames: held against the
+     same graph on the CPU and against the port's modules composed as the
+     graph composes them (`onnx_reference`: f32 decoder on CUDA, B1 96 /
+     48 / 0 launches, KernelProbe on the window's first call), at max
+     |diff| / max |want| <= 5e-3; the bf16 decoder's composition reported
+     beside the decoder's phase2_spread; the graph's and the composed
+     forward's wall ms;
+ 13. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
 `--b1-only` stops after phase 3, `--deploy-only` runs phase 9 alone,
 `--slm-only` phase 10 alone and `--parallel-only` phase 11 alone (each on
-a fresh phase-7 workspace); with
+a fresh phase-7 workspace), `--onnx-only` phase 12 alone; with
 `--package-from DIR` the package
 (kernels, wrappers, config) comes from the checkout in DIR, so two commits'
 B1 kernels are timed by the same code in one run.
@@ -3317,6 +3328,214 @@ def phase_parallel(chk: Checks, root: Path, card: str, cfg_path: Path,
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 12: ONNX export and its runtime
+# ---------------------------------------------------------------------
+
+def onnx_reference(mods, tokens, style, speed: float, device="cuda",
+                   dtype=None):
+    """The exported graph's pipeline composed from the port's modules, as
+    tests/test_onnx.py::_jax_forward composes the JAX package's: text
+    encoder, encode_duration, duration_head, the outlier clamp on
+    dur[1:-2] (torch's unbiased std), / speed, round (>= 1), the 0/1
+    alignment, f0n, then the decoder in `dtype` (the decoder's packed
+    dtype; default f32) with an all-valid frame mask and no source draws:
+    the deterministic sine path, every AdaINResBlock1 conv pair through
+    kernel B1 on CUDA and its plain version on the CPU. mods: the text
+    encoder, predictor and decoder on `device`. Returns (the waveform
+    trimmed by 4000 samples at each end as the graph trims it, f32 numpy;
+    the durations, int64)."""
+    import torch
+
+    dev = torch.device(device)
+    dt = dtype or torch.float32
+    pred, dec = mods["predictor"], mods["decoder"]
+    with torch.inference_mode():
+        tok = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)[None]
+        mask = torch.ones(tok.shape, dtype=torch.bool, device=dev)
+        s = torch.as_tensor(np.asarray(style, np.float32), device=dev)
+        t_en = mods["text_encoder"](tok, mask)  # (1, T, C)
+        d = pred.encode_duration(t_en, s, mask)
+        dur = torch.sigmoid(pred.duration_head(d, mask)).sum(-1)[0]
+        dur = dur.cpu().numpy()
+
+        mid = dur[1:-2]
+        mean, std = mid.mean(), mid.std(ddof=1)  # torch .std() is unbiased
+        repl = mean + np.sign(mid - mean) * (3.0 * std * 0.95)
+        mid = np.where(np.abs((mid - mean) / std) > 3.0, repl, mid)
+        dur = np.concatenate([dur[:1], mid, dur[-2:]])
+        pred_dur = np.clip(np.round(dur / speed), 1, None).astype(np.int64)
+
+        frames = int(pred_dur.sum())
+        align = np.zeros((len(pred_dur), frames), np.float32)
+        c = 0
+        for i, di in enumerate(pred_dur):
+            align[i, c:c + di] = 1.0
+            c += di
+        align_t = torch.from_numpy(np.ascontiguousarray(align.T)).to(dev)[None]
+        f0, n = pred.f0n(torch.matmul(align_t, d), s)
+        asr = torch.matmul(align_t, t_en)
+        wav = dec(asr.to(dt), f0.float(), n.float(), s.to(dt),
+                  torch.ones(1, frames, dtype=torch.bool, device=dev))
+        wav = wav[0, :, 0].float().cpu().numpy()
+    return wav[4000:-4000], pred_dur
+
+
+ONNX_DECODERS = ("hifigan", "istftnet", "vocos")
+# the graph against the CPU graph and the composed f32 modules: the JAX
+# suite's gate for its runtime against its forward (max |got - want| /
+# max |want|)
+ONNX_GATE = 5e-3
+# the utterance's length at the chosen speed, in frames: random weights
+# predict ~5x the natural durations, and the graph takes no duration scale
+ONNX_FRAMES = 300
+
+
+def _pcm(x: np.ndarray) -> np.ndarray:
+    return np.round(np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int64)
+
+
+def phase_onnx(chk: Checks, root: Path, card: str, windows, spreads=None):
+    """Phase 12: per decoder (config_example.yaml's widths; iSTFTNet and
+    Vocos with phase 8's config edits; seeded random weights, the engine's
+    seed 0, f32 decoder), `export_modules` of the engine's modules (wall
+    time, size), the file through `OnnxModel` on CUDA on the short text's
+    tokens with the style of phase 5's clip, at a speed that keeps the
+    utterance near ONNX_FRAMES frames; held at ONNX_GATE against the same
+    graph on the CPU and against `onnx_reference` (the port's modules
+    composed on CUDA, f32 decoder: B1 per b1_per_eval in the window,
+    KernelProbe on its first call); the bf16 decoder's composition
+    reported beside the decoder's phase2_spread (`spreads`, from phases 5
+    and 8); the graph's and the composed forward's wall ms (median of 3
+    after a warm run). Adds the "onnx" window to `windows`."""
+    import torch
+    import yaml
+
+    from styletts2_tpu_torch.config import load_config, with_decoder_type
+    from styletts2_tpu_torch.infer import StyleTTS2
+    from styletts2_tpu_torch.onnx import export_modules
+    from styletts2_tpu_torch.onnx.runtime import OnnxModel
+    from styletts2_tpu_torch.text import tokens_for_sentence
+
+    t_phase = time.perf_counter()
+    raw = yaml.safe_load((root / "configs" / "config_example.yaml")
+                         .read_text())
+    spreads = spreads or {}
+    total = {"b1": 0, "b2": 0}
+    out, style, speed, tokens = {}, None, None, None
+    for dec_type in ONNX_DECODERS:
+        tag = f"[12 onnx {dec_type}]"
+        cfg = load_config(with_decoder_type(raw, dec_type))
+        per_eval = b1_per_eval(cfg.model_params.decoder)
+        engine = StyleTTS2(cfg, seed=0, decoder_dtype="float32")
+        if style is None:  # phase 5's engine, clip and text
+            style = engine.compute_style(style_clip(engine.sr))
+            tokens = np.asarray(tokens_for_sentence(TEXTS["short"],
+                                                    engine.cleaner), np.int64)
+            with torch.inference_mode():
+                tok = torch.from_numpy(tokens).to(engine.device)[None]
+                mask = torch.ones_like(tok, dtype=torch.bool)
+                dur = engine._phase1(tok, mask, style.reshape(1, -1))[2]
+            raw_frames = float(dur.sum())
+            speed = np.float32(max(1.0, round(raw_frames / ONNX_FRAMES, 2)))
+            print(f"[12 onnx] short text: {len(tokens)} tokens, style "
+                  f"{tuple(style.shape)} of phase 5's clip; ~{raw_frames:.0f}"
+                  f" frames at speed 1, graph speed {speed}", flush=True)
+        s_np = style.reshape(1, -1).float().cpu().numpy()
+        feeds = {"tokens": tokens, "style": s_np, "speed": speed}
+        n_params = sum(p.numel() for k in ("text_encoder", "predictor",
+                                           "decoder")
+                       for p in engine.modules[k].parameters())
+        data, t_export = timed(lambda: export_modules(engine, cfg))
+        model, t_load = timed(lambda: OnnxModel(data, device="cuda"))
+        n_nodes = len(model.nodes)
+        print(f"{tag} export_modules: {n_params} parameters, {n_nodes} "
+              f"nodes, {len(data) / 1e6:.1f} MB in {t_export:.2f} s; "
+              f"OnnxModel(cuda) load {t_load:.2f} s | {card}", flush=True)
+
+        graph_ms = _synced_ms(lambda: model.run(feeds))
+        got = model.run(feeds)[0]
+        chk.check(got.ndim == 1 and len(got) > 0 and bool(np.isfinite(
+            got).all()), f"{tag} graph output finite, {got.shape}")
+        cpu_model = OnnxModel(data, device="cpu")
+        got_cpu, t_cpu = timed(lambda: cpu_model.run(feeds)[0])
+        del cpu_model
+        same_len = got_cpu.shape == got.shape
+        cpu_err = scaled_max_err(got, got_cpu) if same_len else float("inf")
+        chk.check(same_len and cpu_err <= ONNX_GATE,
+                  f"{tag} graph CUDA vs CPU: {got.shape} vs "
+                  f"{got_cpu.shape}, scaled max {cpu_err:.3g}")
+
+        mods = engine.modules
+        _counts_zero()
+        with KernelProbe() as probe:
+            ref, pred_dur = onnx_reference(mods, tokens, s_np, float(speed),
+                                           "cuda", torch.float32)
+        c = launches()
+        chk.check(c["b1"] == per_eval and c["b2"] == 0,
+                  f"{tag} B1 launches of the f32 composition {c} (want "
+                  f"{per_eval})")
+        probes = probe.compare(chk, f"{tag} composed f32")
+        for k in total:
+            total[k] += c[k]
+        same_len = ref.shape == got.shape
+        ref_err = scaled_max_err(got, ref) if same_len else float("inf")
+        pcm_diff = (int(np.abs(_pcm(got) - _pcm(ref)).max()) if same_len
+                    else None)
+        chk.check(same_len and ref_err <= ONNX_GATE,
+                  f"{tag} graph vs the composed f32 modules: {got.shape} vs "
+                  f"{ref.shape}, scaled max {ref_err:.3g}")
+        ref_ms = _synced_ms(lambda: onnx_reference(
+            mods, tokens, s_np, float(speed), "cuda", torch.float32))
+
+        mods["decoder"].prepack(torch.bfloat16)
+        _counts_zero()
+        ref16, _ = onnx_reference(mods, tokens, s_np, float(speed), "cuda",
+                                  torch.bfloat16)
+        c16 = launches()
+        chk.check(c16["b1"] == per_eval, f"{tag} B1 launches of the bf16 "
+                  f"composition {c16}")
+        for k in total:
+            total[k] += c16[k]
+        bf16_rel = rel_l2(got, ref16) if ref16.shape == got.shape else None
+        bf16_s = (f"{bf16_rel:.3g}" if bf16_rel is not None
+                  else f"lengths {ref16.shape} vs {got.shape}")
+        spread = spreads.get(dec_type)
+        spread_s = ("not measured in this run" if spread is None
+                    else f"{spread:.3g}")
+        frames = int(pred_dur.sum())
+        print(f"{tag} {frames} frames, {len(got)} samples: graph CUDA vs "
+              f"CPU scaled max {cpu_err:.3g}; vs the composed f32 modules "
+              f"scaled max {ref_err:.3g}, largest int16 difference "
+              f"{pcm_diff} (gate {ONNX_GATE:g}); B1 {c['b1']} launches "
+              f"({probe_line(probes)}); the bf16 composition vs the graph "
+              f"rel-l2 {bf16_s} (reported; this decoder's bf16 "
+              f"phase2_spread {spread_s})", flush=True)
+        print(f"{tag} wall ms, median of 3 after a warm run: graph on CUDA "
+              f"{graph_ms:.1f}, composed modules (f32) {ref_ms:.1f}; graph "
+              f"on the CPU (one run) {t_cpu * 1e3:.1f} | {card}", flush=True)
+        out[dec_type] = dict(
+            parameters=n_params, nodes=n_nodes, bytes=len(data),
+            export_s=t_export, load_s=t_load, frames=frames,
+            samples=len(got), speed=float(speed), cpu_scaled_max=cpu_err,
+            ref_scaled_max=ref_err, ref_int16_max_diff=pcm_diff,
+            bf16_rel_l2=bf16_rel, phase2_spread=spread, graph_ms=graph_ms,
+            composed_ms=ref_ms, cpu_ms=t_cpu * 1e3, launches=c,
+            launches_bf16=c16, probes=probes)
+        del engine, model, mods, data
+        gc.collect()
+        torch.cuda.empty_cache()
+    windows["onnx"] = total
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[12 onnx] phase wall {out['wall_s']:.1f} s, launches {total}",
+          flush=True)
+    return out
+
+
+def scaled_max_err(got, want) -> float:
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write the measurements here")
@@ -3331,6 +3550,9 @@ def main() -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="run phases 1, 2 and 11 only (on a fresh phase-7 "
                     "workspace) and print no result line")
+    ap.add_argument("--onnx-only", action="store_true",
+                    help="run phases 1, 2 and 12 only and print no result "
+                    "line")
     ap.add_argument("--parallel-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)  # one rank of phase 11
     ap.add_argument("--package-from", metavar="DIR",
@@ -3394,6 +3616,14 @@ def main() -> int:
                 {"card": card, "parallel": par, "failed": chk.failed},
                 indent=1, default=str))
         return 1 if chk.failed else 0
+    if args.onnx_only:
+        onnx = phase_onnx(chk, root, card, {})
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"card": card, "onnx": onnx, "failed": chk.failed},
+                indent=1, default=str))
+        return 1 if chk.failed else 0
     if args.slm_only:
         slm = phase_slm(chk, root, card, seed_workspace(root), {})
         if args.json:
@@ -3427,9 +3657,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     par = phase_parallel(chk, root, card, workload[0], windows)
-    # the main path's launches: every window of phases 5, 7, 8, 9, 10 and
-    # 11 (graph replays counted as the launches they recorded; phase 11's
-    # per rank)
+    gc.collect()
+    torch.cuda.empty_cache()
+    onnx = phase_onnx(chk, root, card, windows, spreads={
+        "hifigan": engine_out["batch"]["spread"]["batch8"],
+        **{d: decoders[d]["batch"]["spread"]["batch8"]
+           for d in DECODER_TYPES}})
+    # the main path's launches: every window of phases 5, 7, 8, 9, 10, 11
+    # and 12 (graph replays counted as the launches they recorded; phase
+    # 11's per rank)
     n_b1 = sum(c["b1"] for c in windows.values())
     n_b2 = sum(c["b2"] for c in windows.values())
 
@@ -3460,7 +3696,8 @@ def main() -> int:
             {"card": card, "kernels": kernels, "b1": b1, "b2": b2,
              "engine": engine_out, "launches": windows,
              "train": train_out, "decoders": decoders, "deploy": deploy,
-             "slm": slm, "parallel": par, "failed": chk.failed}, indent=1,
+             "slm": slm, "parallel": par, "onnx": onnx,
+             "failed": chk.failed}, indent=1,
             default=str))
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} checks failed: {chk.failed}",

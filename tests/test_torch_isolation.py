@@ -32,7 +32,8 @@ for must in ("train", "train_loop", "losses", "optim", "checkpoint",
              "tools.export_serving", "tools.app", "tools.demo_infer",
              "tools.convert_to_torch", "tools.strip_checkpoint",
              "tools.extend_tokens", "parallel", "parallel.mesh",
-             "parallel.seqpar"):
+             "parallel.seqpar", "onnx", "onnx.proto", "onnx.builder",
+             "onnx.export", "onnx.runtime", "tools.export_onnx"):
     assert pkg.__name__ + "." + must in names, must
 print(len(names))
 print("|".join(bad))
@@ -45,9 +46,9 @@ def test_package_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = (out.stdout.split("\n") + [""])[:2]
-    # every submodule was imported: the inference, training and
-    # deployment modules
-    assert int(n_modules) >= 45, out.stdout
+    # every submodule was imported: the inference, training, deployment,
+    # multi-GPU and ONNX modules
+    assert int(n_modules) >= 58, out.stdout
     assert bad == "", f"imported: {bad}"
 
 
