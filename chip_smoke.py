@@ -4,7 +4,7 @@ check it.
 
     python3 chip_smoke.py [--json PATH] [--b1-only] [--deploy-only]
                           [--slm-only] [--parallel-only] [--onnx-only]
-                          [--package-from DIR]
+                          [--export-only] [--package-from DIR]
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit; torch and CUDA versions);
@@ -123,12 +123,27 @@ Phases, each printed on its own line:
      |diff| / max |want| <= 5e-3; the bf16 decoder's composition reported
      beside the decoder's phase2_spread; the graph's and the composed
      forward's wall ms;
- 13. the kernels line (JSON), the card line, and the result line.
+ 13. the serving export ("[13 export]", tools/export_serving.py): per
+     decoder (HiFi-GAN, iSTFTNet, Vocos at full width, bf16, seeded
+     random weights) `export_engine` at the (token, frame) bucket pair
+     the two-phase plan takes for the short text with phase 5's style
+     (export seconds, MB per file), then a process of this script that
+     imports torch and the operator module only (asserted) loads the
+     graphs with `load_exported` and runs phase 1, then phase 2 on the
+     parent's post-processed durations: held against the live engine's
+     `_phase1` / `_phase2` (phase 1 scaled max < 1e-5, PCM rel-l2 <
+     2.5e-3, bit identity and the largest int16 difference printed), B1
+     launched 96 / 48 / 0 times per exported phase-2 call (counted in
+     that process), the registered op on CUDA against its plain version
+     at one HiFi-GAN shape (phase 3's gates), and the loaded graphs' wall
+     ms beside the live eager phases';
+ 14. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
 `--b1-only` stops after phase 3, `--deploy-only` runs phase 9 alone,
 `--slm-only` phase 10 alone and `--parallel-only` phase 11 alone (each on
-a fresh phase-7 workspace), `--onnx-only` phase 12 alone; with
+a fresh phase-7 workspace), `--onnx-only` phase 12 alone,
+`--export-only` phase 13 alone; with
 `--package-from DIR` the package
 (kernels, wrappers, config) comes from the checkout in DIR, so two commits'
 B1 kernels are timed by the same code in one run.
@@ -3532,6 +3547,314 @@ def phase_onnx(chk: Checks, root: Path, card: str, windows, spreads=None):
     return out
 
 
+EXPORT_DECODERS = ("hifigan", "istftnet", "vocos")
+# the loaded graphs against the live engine on the same inputs: phase 1 as
+# max |diff| / max |want| per output, phase 2's PCM at phase 6's f32 gate
+EXPORT_P1_GATE = 1e-5
+EXPORT_PCM_GATE = BATCH_BOUND["float32"]
+# what a process that loads the graphs may import of the package: the
+# loader, the operator module and what that imports
+EXPORT_CHILD_MODULES = {
+    "styletts2_tpu_torch", "styletts2_tpu_torch.ops",
+    "styletts2_tpu_torch.ops.vocoder_kernel",
+    "styletts2_tpu_torch.ops.launch_count", "styletts2_tpu_torch.ops._build",
+    "styletts2_tpu_torch.tools", "styletts2_tpu_torch.tools.export_serving"}
+
+
+def _wait_for(path: Path, timeout: float = 900.0) -> None:
+    t0 = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"no {path} after {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def export_worker(spec_path: str) -> int:
+    """Phase 13's serving process (`--export-worker SPEC`): imports torch
+    and the operator module only (asserted). For each decoder of the spec,
+    as soon as the parent has written its graphs (`ready.json`): loads
+    them with `load_exported`, runs phase 1 on the parent's tokens, then
+    phase 2 on the parent's post-processed durations (its B1 launches
+    counted by ops/launch_count), and writes the outputs. Then calls the
+    registered op directly on CUDA against ada_snake_conv_plain at one
+    HiFi-GAN shape (phase 3's gates), and last times every decoder's
+    loaded graphs (median of 5, synced) while the parent waits."""
+    t_start = time.perf_counter()
+    spec = json.loads(Path(spec_path).read_text())
+    sys.path.insert(0, spec["root"])
+    import torch
+    from styletts2_tpu_torch.ops import launch_count as LC
+    from styletts2_tpu_torch.ops import vocoder_kernel as VK
+    from styletts2_tpu_torch.tools.export_serving import load_exported
+
+    torch.set_num_threads(4)
+    chk = Checks()
+    ws = Path(spec["ws"])
+    runs = {}
+    for dec in spec["decoders"]:
+        _wait_for(ws / dec / "ready.json")
+        ready = json.loads((ws / dec / "ready.json").read_text())
+        t0 = time.perf_counter()
+        _, graphs = load_exported(str(ws / dec))
+        load_s = time.perf_counter() - t0
+        x = {k: torch.from_numpy(v).cuda()
+             for k, v in np.load(ws / dec / "inputs.npz").items()}
+        p1, p2 = graphs[ready["p1"]], graphs[ready["p2"]]
+        t_en, d, dur = p1(x["tokens"], x["mask"], x["s"])
+        LC.reset()
+        pcm = p2(t_en, d, x["s"], x["durs"])
+        torch.cuda.synchronize()
+        b1 = LC.get("ada_snake_conv")
+        np.savez(ws / dec / "outputs.npz", t_en=t_en.float().cpu().numpy(),
+                 d=d.float().cpu().numpy(), dur=dur.cpu().numpy(),
+                 pcm=pcm.cpu().numpy())
+        runs[dec] = (p1, p2, x, t_en, d)
+        (ws / dec / "result.json").write_text(json.dumps(
+            dict(load_s=load_s, b1=b1)))
+
+    # the op itself at HiFi-GAN's first resblock stage at the frame bucket
+    # (C 256, T = 2 F x 10), k 3, d 3
+    fb = spec["fb"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    op = {}
+    for dtype, res, st in ((torch.float32, False, False),
+                           (torch.bfloat16, True, True)):
+        o = b1_operands(256, 20 * fb, 3, dtype, gen, residual=res)
+        got = VK.OP(o["x"], o["scale"], o["shift"], o["alpha"], o["w"],
+                    o["bias"], 3, o["n_valid"], o["residual"], st)
+        want = b1_call(VK.ada_snake_conv_plain, o, 3, st)
+        want = want if st else (want, None)
+        name = str(dtype).split(".")[-1]
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        scale = max(1.0, want[0].float().abs().max().item())
+        ok = err <= TOL[name] * scale
+        if st:
+            serr = ((got[1] - want[1]).abs().max().item()
+                    / max(1.0, want[1].abs().max().item()))
+            ok = ok and serr <= STATS_TOL[name]
+        chk.check(ok, f"registered op on CUDA (1, {20 * fb}, 256) {name} vs "
+                  f"plain: err {err:.3g} of max {scale:.3g}")
+        op[name] = dict(shape=[1, 20 * fb, 256], max_abs_err=err,
+                        max_plain=scale)
+
+    # the dispatcher's host cost per eager call: the op against its CUDA
+    # kernel's function called directly (the route before the op), on a
+    # shape whose launch takes less device time than either call's host
+    # time, in turns
+    o = b1_operands(256, 64, 3, torch.bfloat16, gen, residual=True)
+    args = (o["x"], o["scale"], o["shift"], o["alpha"], o["w"], o["bias"], 1,
+            o["n_valid"], o["residual"], True)
+    per_call = {"direct": [], "op": []}
+    for name in ("direct", "op", "op", "direct") * 3:
+        fn = VK._op_cuda if name == "direct" else VK.OP
+        for _ in range(20):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn(*args)
+        torch.cuda.synchronize()
+        per_call[name].append((time.perf_counter() - t0) / 500 * 1e6)
+    op["host_us_per_call"] = {k: float(np.median(v))
+                              for k, v in per_call.items()}
+
+    timing = {}
+    for dec, (p1, p2, x, t_en, d) in runs.items():
+        timing[dec] = dict(
+            phase1_ms=_synced_ms(lambda: p1(x["tokens"], x["mask"], x["s"]),
+                                 reps=5),
+            phase2_ms=_synced_ms(lambda: p2(t_en, d, x["s"], x["durs"]),
+                                 reps=5))
+    mods = sorted(m for m in sys.modules if m.startswith("styletts2_tpu"))
+    extra = sorted(set(mods) - EXPORT_CHILD_MODULES)
+    chk.check(not extra and "styletts2_tpu_torch.ops.vocoder_kernel" in mods,
+              f"the serving process imported model code: {extra}")
+    chk.check(not any(m == "jax" or m.startswith("jax.")
+                      for m in sys.modules), "the serving process imported jax")
+    (ws / "worker.json").write_text(json.dumps(dict(
+        op=op, timing=timing, modules=mods, failed=chk.failed,
+        wall_s=time.perf_counter() - t_start)))
+    return 0
+
+
+def phase_export(chk: Checks, root: Path, card: str, windows):
+    """Phase 13: per decoder (config_example.yaml's widths, bf16, seeded
+    random weights; iSTFTNet and Vocos with phase 8's config edits),
+    `export_engine` at the (token, frame) bucket pair the two-phase plan
+    takes for the short text with phase 5's style (its durations through
+    the engine's host glue, stabilisation on). One process of this script
+    that imports torch and the operator module only (`export_worker`,
+    started first) loads each decoder's graphs as soon as they are written
+    (while the next decoder exports) and runs them on the same inputs:
+    held against the live engine's `_phase1` / `_phase2` (bit identity
+    reported; EXPORT_P1_GATE, EXPORT_PCM_GATE), B1 launches per phase-2
+    call (b1_per_eval), and, once every export is done, the loaded graphs'
+    wall ms, then the live eager phases' (each timed while the other
+    process waits). Adds the "export" window (the serving process's
+    counted phase-2 calls) to `windows`."""
+    import torch
+    import yaml
+
+    from styletts2_tpu_torch.config import load_config, with_decoder_type
+    from styletts2_tpu_torch.infer import StyleTTS2, _bucket
+    from styletts2_tpu_torch.text import tokens_for_sentence
+    from styletts2_tpu_torch.tools.export_serving import export_engine
+
+    t_phase = time.perf_counter()
+    raw = yaml.safe_load((root / "configs" / "config_example.yaml")
+                         .read_text())
+    ws = root / "build" / "export_smoke"
+    shutil.rmtree(ws, ignore_errors=True)
+    ws.mkdir(parents=True)
+    live, out = {}, {}
+    proc = None
+    try:
+        for dec_type in EXPORT_DECODERS:
+            tag = f"[13 export {dec_type}]"
+            cfg = load_config(with_decoder_type(raw, dec_type))
+            engine = StyleTTS2(cfg, seed=0)
+            dev = engine.device
+            s = engine.compute_style(style_clip(engine.sr)).reshape(1, -1)
+            tk = tokens_for_sentence(TEXTS["short"], engine.cleaner)
+            tb = _bucket(cfg.tpu.token_buckets, len(tk))
+            tokens = np.zeros((1, tb), np.int64)
+            tokens[0, : len(tk)] = tk
+            mask = np.zeros((1, tb), bool)
+            mask[0, : len(tk)] = True
+            tok_d = torch.from_numpy(tokens).to(dev)
+            mask_d = torch.from_numpy(mask).to(dev)
+            live1 = engine._phase1(tok_d, mask_d, s)
+            pred, _ = engine._postprocess_durations(
+                live1[2][0, : len(tk)].cpu().numpy(), 1.0, 0.0, 0.2,
+                np.random.default_rng([0, 0]))
+            durs = np.zeros((1, tb), np.int32)
+            durs[0, : len(tk)] = pred
+            frames = int(pred.sum())
+            fb = _bucket(cfg.tpu.frame_buckets, frames)
+            durs_d = torch.from_numpy(durs).to(dev)
+            live2 = engine._phase2(*live1[:2], s, durs_d, fb)
+            if proc is None:  # its imports overlap the first export
+                spec_path = ws / "spec.json"
+                spec_path.write_text(json.dumps(dict(
+                    root=str(root), ws=str(ws), fb=fb,
+                    decoders=list(EXPORT_DECODERS))))
+                with open(ws / "worker.log", "w") as logf:
+                    proc = subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--export-worker", str(spec_path)],
+                        stdout=logf, stderr=subprocess.STDOUT)
+
+            gdir = ws / dec_type
+            manifest, export_s = timed(lambda: export_engine(
+                engine, str(gdir), [tb], [fb]))
+            mb = {f: (gdir / f).stat().st_size / 1e6
+                  for f in manifest.values()}
+            print(f"{tag} export_engine at (token bucket {tb}, frame "
+                  f"bucket {fb}; {len(tk)} tokens, {frames} frames): "
+                  f"{export_s:.1f} s, "
+                  + ", ".join(f"{f} {v:.1f} MB" for f, v in mb.items())
+                  + f" | {card}", flush=True)
+            np.savez(gdir / "inputs.npz", tokens=tokens, mask=mask,
+                     s=s.float().cpu().numpy(), durs=durs)
+            (gdir / "ready.json").write_text(json.dumps(dict(
+                p1=f"phase1/{tb}", p2=f"phase2/{tb}/{fb}")))
+            live[dec_type] = (engine, tok_d, mask_d, s, durs_d, fb, live1,
+                              live2)
+            out[dec_type] = dict(token_bucket=tb, frame_bucket=fb,
+                                 tokens=len(tk), frames=frames,
+                                 export_s=export_s, file_mb=mb)
+        proc.wait(timeout=900)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+    chk.check(proc.returncode == 0, f"[13 export] serving process exit "
+              f"{proc.returncode}: "
+              f"{(ws / 'worker.log').read_text()[-3000:]}")
+    worker = (json.loads((ws / "worker.json").read_text())
+              if proc.returncode == 0 else {"failed": [], "timing": {}})
+    for what in worker["failed"]:
+        chk.check(False, f"[13 export] {what}")
+    if worker.get("modules"):
+        print(f"[13 export] serving process: imports "
+              f"{', '.join(m.split('.', 1)[-1] for m in worker['modules'])}"
+              f"; its wall {worker['wall_s']:.1f} s (started before the "
+              f"first export); registered op on CUDA vs plain: "
+              + "; ".join(f"{k} {tuple(v['shape'])} err "
+                          f"{v['max_abs_err']:.3g} of max "
+                          f"{v['max_plain']:.3g}"
+                          for k, v in worker["op"].items()
+                          if k != "host_us_per_call"), flush=True)
+        hc = worker["op"]["host_us_per_call"]
+        print(f"[13 export] eager B1 call (1, 64, 256) bf16, host us per "
+              f"call, median of 6 runs of 500: through the op "
+              f"{hc['op']:.1f}, the CUDA kernel's function called directly "
+              f"{hc['direct']:.1f} | {card}", flush=True)
+
+    total = {"b1": 0, "b2": 0}
+    for dec_type, (engine, tok_d, mask_d, s, durs_d, fb, live1,
+                   live2) in live.items():
+        tag = f"[13 export {dec_type}]"
+        gdir = ws / dec_type
+        per_eval = b1_per_eval(engine.cfg.model_params.decoder)
+        eager1_ms = _synced_ms(lambda: engine._phase1(tok_d, mask_d, s), 5)
+        eager2_ms = _synced_ms(lambda: engine._phase2(*live1[:2], s, durs_d,
+                                                      fb), 5)
+        out[dec_type].update(eager_phase1_ms=eager1_ms,
+                             eager_phase2_ms=eager2_ms)
+        if not (gdir / "result.json").exists():
+            continue
+        res = json.loads((gdir / "result.json").read_text())
+        got = np.load(gdir / "outputs.npz")
+        p1_err = {}
+        for name, want in zip(("t_en", "d", "dur"), live1):
+            w = want.float().cpu().numpy()
+            p1_err[name] = (scaled_max_err(got[name], w)
+                            if got[name].shape == w.shape else float("inf"))
+        want_pcm = live2.cpu().numpy()
+        same = got["pcm"].shape == want_pcm.shape
+        pcm_rel = (rel_l2(got["pcm"].astype(np.float64),
+                          want_pcm.astype(np.float64)) if same
+                   else float("inf"))
+        pcm_diff = (int(np.abs(got["pcm"].astype(np.int64)
+                               - want_pcm.astype(np.int64)).max())
+                    if same else None)
+        identical = (same and np.array_equal(got["pcm"], want_pcm)
+                     and all(v == 0.0 for v in p1_err.values()))
+        chk.check(all(v < EXPORT_P1_GATE for v in p1_err.values()),
+                  f"{tag} phase-1 graph vs live _phase1: scaled max "
+                  f"{p1_err}")
+        chk.check(pcm_rel < EXPORT_PCM_GATE, f"{tag} phase-2 graph vs live "
+                  f"_phase2: PCM rel-l2 {pcm_rel:.3g}")
+        chk.check(res["b1"] == per_eval, f"{tag} B1 launches per exported "
+                  f"phase-2 call {res['b1']} (want {per_eval})")
+        total["b1"] += res["b1"]
+        tm = worker["timing"].get(dec_type, {})
+        print(f"{tag} serving process: load {res['load_s']:.1f} s; vs the "
+              f"live engine: phase 1 scaled max "
+              + ", ".join(f"{k} {v:.3g}" for k, v in p1_err.items())
+              + f", PCM rel-l2 {pcm_rel:.3g}, largest int16 difference "
+              f"{pcm_diff}, bit-identical {identical}; B1 {res['b1']} "
+              f"launches per phase-2 call (want {per_eval})", flush=True)
+        print(f"{tag} wall ms, median of 5 synced: loaded phase 1 "
+              f"{tm.get('phase1_ms', float('nan')):.2f}, phase 2 "
+              f"{tm.get('phase2_ms', float('nan')):.2f}; live eager _phase1 "
+              f"{eager1_ms:.2f}, _phase2 {eager2_ms:.2f} | {card}",
+              flush=True)
+        out[dec_type].update(
+            load_s=res["load_s"], b1=res["b1"], **tm,
+            phase1_scaled_max=p1_err, pcm_rel_l2=pcm_rel,
+            pcm_int16_max_diff=pcm_diff, bit_identical=identical)
+    out["op"] = worker.get("op")
+    del live
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ws, ignore_errors=True)
+    windows["export"] = total
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[13 export] phase wall {out['wall_s']:.1f} s, launches {total}",
+          flush=True)
+    return out
+
 def scaled_max_err(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
 
@@ -3553,8 +3876,13 @@ def main() -> int:
     ap.add_argument("--onnx-only", action="store_true",
                     help="run phases 1, 2 and 12 only and print no result "
                     "line")
+    ap.add_argument("--export-only", action="store_true",
+                    help="run phases 1, 2 and 13 only and print no result "
+                    "line")
     ap.add_argument("--parallel-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)  # one rank of phase 11
+    ap.add_argument("--export-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)  # phase 13's serving process
     ap.add_argument("--package-from", metavar="DIR",
                     help="import styletts2_tpu_torch from the checkout in "
                     "DIR instead of this one (with --b1-only: time another "
@@ -3562,6 +3890,8 @@ def main() -> int:
     args = ap.parse_args()
     if args.parallel_worker:
         return parallel_worker(args.parallel_worker)
+    if args.export_worker:
+        return export_worker(args.export_worker)
     try:
         import torch
     except ImportError:
@@ -3624,6 +3954,14 @@ def main() -> int:
                 {"card": card, "onnx": onnx, "failed": chk.failed},
                 indent=1, default=str))
         return 1 if chk.failed else 0
+    if args.export_only:
+        export = phase_export(chk, root, card, {})
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"card": card, "export": export, "failed": chk.failed},
+                indent=1, default=str))
+        return 1 if chk.failed else 0
     if args.slm_only:
         slm = phase_slm(chk, root, card, seed_workspace(root), {})
         if args.json:
@@ -3663,9 +4001,12 @@ def main() -> int:
         "hifigan": engine_out["batch"]["spread"]["batch8"],
         **{d: decoders[d]["batch"]["spread"]["batch8"]
            for d in DECODER_TYPES}})
-    # the main path's launches: every window of phases 5, 7, 8, 9, 10, 11
-    # and 12 (graph replays counted as the launches they recorded; phase
-    # 11's per rank)
+    gc.collect()
+    torch.cuda.empty_cache()
+    export = phase_export(chk, root, card, windows)
+    # the main path's launches: every window of phases 5, 7, 8, 9, 10, 11,
+    # 12 and 13 (graph replays counted as the launches they recorded; phase
+    # 11's per rank; phase 13's in its serving process)
     n_b1 = sum(c["b1"] for c in windows.values())
     n_b2 = sum(c["b2"] for c in windows.values())
 
@@ -3696,7 +4037,7 @@ def main() -> int:
             {"card": card, "kernels": kernels, "b1": b1, "b2": b2,
              "engine": engine_out, "launches": windows,
              "train": train_out, "decoders": decoders, "deploy": deploy,
-             "slm": slm, "parallel": par, "onnx": onnx,
+             "slm": slm, "parallel": par, "onnx": onnx, "export": export,
              "failed": chk.failed}, indent=1,
             default=str))
     if chk.failed:

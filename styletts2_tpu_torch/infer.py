@@ -441,6 +441,11 @@ class StyleTTS2:
     @torch.inference_mode()
     def _phase1(self, tokens: torch.Tensor, mask: torch.Tensor,
                 s: torch.Tensor):
+        """`_phase1_impl` under inference mode."""
+        return self._phase1_impl(tokens, mask, s)
+
+    def _phase1_impl(self, tokens: torch.Tensor, mask: torch.Tensor,
+                     s: torch.Tensor):
         """tokens (B, Tb) -> (t_en, d, durations (B, Tb) f32); s (1, D) or
         (B, D)."""
         s = s.expand(tokens.shape[0], -1)

@@ -12,11 +12,23 @@ last stage at an odd T, 120 F + 1 rows).
     z   = z cast to x.dtype
     out = conv1d_same(z, w, dilation) + bias (+ residual), f32 accumulation
 
-`ada_snake_conv` launches the kernel for CUDA tensors and runs
-`ada_snake_conv_plain` for CPU tensors; there is no other route. It has no
-backward (nor has the TPU kernel): it is inference only, and raises when
-asked to build a graph, pointing to the training route (the block's plain
-formulation, taken when the caller passes no valid prefix). bf16
+B1 is an operator of PyTorch's dispatcher,
+`torch.ops.styletts2_tpu_torch.ada_snake_conv` (registered when this
+module is imported; nothing is built then): its CPU kernel is
+`ada_snake_conv_plain`, its CUDA kernel launches csrc/vocoder.cu (built at
+the first CUDA call, ops/_build.py) and counts the launch in
+ops/launch_count, and its fake kernel gives shapes and dtypes only, so
+`torch.export` traces it as one node and a loaded graph launches the
+kernel (tools/export_serving.py). A serving process that loads such a
+graph imports this module and nothing else of the package. The op always
+returns two tensors: the output and the stats, empty when not asked for.
+
+`ada_snake_conv`, the wrapper every caller uses, checks its arguments and
+calls the op: the kernel for CUDA tensors, the plain version for CPU
+tensors; there is no other route. It has no backward (nor has the TPU
+kernel): it is inference only, and raises when asked to build a graph,
+pointing to the training route (the block's plain formulation, taken when
+the caller passes no valid prefix). bf16
 runs its products on the tensor cores (wgmma), f32 on the CUDA cores in
 true f32. The weight is prepacked (k, C_in, C_out) in x's dtype
 (weights.py / the block's `prepack`) for both; the bf16 kernel reads it
@@ -122,35 +134,22 @@ def _check(x, scale, shift, alpha, w, bias, n_valid, residual):
         raise ValueError(f"ada_snake_conv: SAME conv needs an odd k, got {k}")
 
 
-def ada_snake_conv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-                   alpha: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                   dilation: int, n_valid: torch.Tensor, *,
-                   residual: Optional[torch.Tensor] = None,
-                   out_stats: bool = False):
-    """x: (B, T, C) f32 or bf16; scale, shift: (B, C) f32; alpha, bias:
-    (C,) f32; w: (k, C, C) in x.dtype; n_valid: (B,) int32 valid prefix
-    lengths; residual: optional (B, T, C) in x.dtype. Returns out (B, T, C)
-    in x.dtype, and with out_stats also the (B, 2, C) f32 [sum, sum of
-    squares] of the masked output.
+def _no_stats(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty((0,), dtype=torch.float32, device=x.device)
 
-    CPU tensors: the plain version. CUDA tensors: kernel B1, or an error.
-    Inference only: raises if grad mode is on and any tensor argument
-    requires a gradient."""
-    if torch.is_grad_enabled() and any(
-            v is not None and v.requires_grad
-            for v in (x, scale, shift, alpha, w, bias, residual)):
-        raise RuntimeError(
-            "ada_snake_conv is inference only (kernel B1 has no backward): "
-            "a differentiable call takes the plain training route, "
-            "AdaINResBlock1(x, s) with no mask and no n_valid (the "
-            "decoder's frame_mask=None), as the training step does")
-    _check(x, scale, shift, alpha, w, bias, n_valid, residual)
-    if x.device.type == "cpu":
-        return ada_snake_conv_plain(x, scale, shift, alpha, w, bias,
-                                    dilation, n_valid, residual=residual,
-                                    out_stats=out_stats)
-    if x.device.type != "cuda":
-        raise ValueError(f"ada_snake_conv: unsupported device {x.device}")
+
+def _op_plain(x, scale, shift, alpha, w, bias, dilation, n_valid, residual,
+              out_stats):
+    """The op's CPU kernel."""
+    out = ada_snake_conv_plain(x, scale, shift, alpha, w, bias, dilation,
+                               n_valid, residual=residual,
+                               out_stats=out_stats)
+    return out if out_stats else (out, _no_stats(x))
+
+
+def _op_cuda(x, scale, shift, alpha, w, bias, dilation, n_valid, residual,
+             out_stats):
+    """The op's CUDA kernel: one launch of B1, counted."""
     b, t, c = x.shape
     if c % 32 != 0:
         raise ValueError(f"ada_snake_conv kernel needs C % 32 == 0, got {c}")
@@ -184,5 +183,60 @@ def ada_snake_conv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                                f"error {err}")
     launch_count.add("ada_snake_conv")
     if not out_stats:
-        return out
+        return out, _no_stats(x)
     return out, stats.sum(dim=-1)
+
+
+def _op_fake(x, scale, shift, alpha, w, bias, dilation, n_valid, residual,
+             out_stats):
+    """Shapes and dtypes for tracing (torch.export); calls no library."""
+    b, _, c = x.shape
+    stats = (x.new_empty((b, 2, c), dtype=torch.float32) if out_stats
+             else _no_stats(x))
+    return torch.empty_like(x), stats
+
+
+# torch.library.Library + impl, not torch.library.custom_op, which costs
+# more host time per eager call (on an x86 host, with a trivial kernel:
+# ~14 us against ~5). On an H100 host the op adds ~10 us per call to its
+# CUDA kernel's own host time (chip_smoke.py phase 13 measures it).
+_LIB = torch.library.Library("styletts2_tpu_torch", "DEF")
+_LIB.define("ada_snake_conv(Tensor x, Tensor scale, Tensor shift, "
+            "Tensor alpha, Tensor w, Tensor bias, int dilation, "
+            "Tensor n_valid, Tensor? residual, bool out_stats) "
+            "-> (Tensor, Tensor)")
+_LIB.impl("ada_snake_conv", _op_plain, "CPU")
+_LIB.impl("ada_snake_conv", _op_cuda, "CUDA")
+torch.library.register_fake("styletts2_tpu_torch::ada_snake_conv", _op_fake,
+                            lib=_LIB)
+OP = torch.ops.styletts2_tpu_torch.ada_snake_conv.default
+
+
+def ada_snake_conv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                   alpha: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   dilation: int, n_valid: torch.Tensor, *,
+                   residual: Optional[torch.Tensor] = None,
+                   out_stats: bool = False):
+    """x: (B, T, C) f32 or bf16; scale, shift: (B, C) f32; alpha, bias:
+    (C,) f32; w: (k, C, C) in x.dtype; n_valid: (B,) int32 valid prefix
+    lengths; residual: optional (B, T, C) in x.dtype. Returns out (B, T, C)
+    in x.dtype, and with out_stats also the (B, 2, C) f32 [sum, sum of
+    squares] of the masked output.
+
+    Calls the op: CPU tensors, the plain version; CUDA tensors, kernel B1
+    or an error. Inference only: raises if grad mode is on and any tensor
+    argument requires a gradient."""
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad
+            for v in (x, scale, shift, alpha, w, bias, residual)):
+        raise RuntimeError(
+            "ada_snake_conv is inference only (kernel B1 has no backward): "
+            "a differentiable call takes the plain training route, "
+            "AdaINResBlock1(x, s) with no mask and no n_valid (the "
+            "decoder's frame_mask=None), as the training step does")
+    _check(x, scale, shift, alpha, w, bias, n_valid, residual)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ada_snake_conv: unsupported device {x.device}")
+    out, stats = OP(x, scale, shift, alpha, w, bias, int(dilation), n_valid,
+                    residual, bool(out_stats))
+    return (out, stats) if out_stats else out
