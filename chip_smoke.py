@@ -4,7 +4,8 @@ check it.
 
     python3 chip_smoke.py [--json PATH] [--b1-only] [--deploy-only]
                           [--slm-only] [--parallel-only] [--onnx-only]
-                          [--export-only] [--package-from DIR]
+                          [--export-only] [--tools-only]
+                          [--package-from DIR]
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit; torch and CUDA versions);
@@ -137,13 +138,24 @@ Phases, each printed on its own line:
      that process), the registered op on CUDA against its plain version
      at one HiFi-GAN shape (phase 3's gates), and the loaded graphs' wall
      ms beside the live eager phases';
- 14. the kernels line (JSON), the card line, and the result line.
+ 14. the measurement tools ("[14 tools]"), each through its `main(argv)`
+     in this process with its standard output captured, as its command
+     line runs it: `tools/bench_train --steps 3` at the reference recipe
+     (HiFi-GAN, batch 5, max_len 300, f32; an out-of-memory error fails
+     the phase), then `tools/profile_inference hifigan 1`; each tool's
+     output checked (the JSON keys and finite losses; every figure's line), B2's
+     launches in the bench window equal to 8 per micro-batch of the warm
+     and the timed steps and none of B1's, and B1's in the profile window
+     96 per phase-2, decoder or generator evaluation plus the operator
+     calls of its dispatch floor; the phase's and the whole script's wall
+     seconds;
+ 15. the kernels line (JSON), the card line, and the result line.
 Any failed check exits non-zero without the result line. Without a CUDA
 device, or without the repository around it, it exits non-zero at once.
 `--b1-only` stops after phase 3, `--deploy-only` runs phase 9 alone,
 `--slm-only` phase 10 alone and `--parallel-only` phase 11 alone (each on
 a fresh phase-7 workspace), `--onnx-only` phase 12 alone,
-`--export-only` phase 13 alone; with
+`--export-only` phase 13 alone, `--tools-only` phase 14 alone; with
 `--package-from DIR` the package
 (kernels, wrappers, config) comes from the checkout in DIR, so two commits'
 B1 kernels are timed by the same code in one run.
@@ -165,6 +177,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its operations over the peak for their type and its bytes over
 # the memory rate
@@ -3855,6 +3868,125 @@ def phase_export(chk: Checks, root: Path, card: str, windows):
           flush=True)
     return out
 
+
+# phase 14: bench_train's timed steps at the reference recipe, and the keys
+# of its JSON line
+BENCH_STEPS = 3
+BENCH_KEYS = {"metric", "ms_per_step", "steps_per_s", "mel_frames_per_s",
+              "audio_s_per_train_s", "compile_plus_first_step_s", "device",
+              "losses", "peak_mem_gib"}
+PROFILE_LINES = [r"dispatch overhead: [\d.]+ ms",
+                 r"B1 op call \(1, \d+, 256\): [\d.]+ ms",
+                 r"phase1 \(b=1, tb=64\): [\d.]+ ms",
+                 *(rf"phase2 \(b=1, fb={fb}, [\d.]+s audio\): [\d.]+ ms -> "
+                   r"[\d.]+x realtime" for fb in (400, 800, 1600)),
+                 r"decoder-only \(b=1, fb=800\): [\d.]+ ms -> [\d.]+x",
+                 r"generator-only: [\d.]+ ms -> [\d.]+x",
+                 r"f0n-only \(b=1, fb=800\): [\d.]+ ms"]
+
+
+def _tool_main(main, argv):
+    """main(argv) in this process with its standard output captured: (its
+    return value, the lines it printed). A tool that fails raises."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    return ret, buf.getvalue().splitlines()
+
+
+def phase_tools(chk: Checks, card: str, windows):
+    """Phase 14: `tools/bench_train` at the reference recipe and
+    `tools/profile_inference hifigan 1`, each through its `main` in this
+    process, each in a window of the launch counts (set to 0 just before
+    the tool, read just after).
+    Adds the "tools_bench" and "tools_profile" windows to `windows`."""
+    import torch
+
+    from styletts2_tpu_torch.ops import launch_count as LC
+    from styletts2_tpu_torch.tools import bench_train as BT
+    from styletts2_tpu_torch.tools import profile_inference as PI
+
+    t_phase = time.perf_counter()
+    out = {}
+    argv = ["--steps", str(BENCH_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    LC.reset()
+    t0 = time.perf_counter()
+    with KernelProbe() as probe:
+        bench, lines = _tool_main(BT.main, argv)
+    counts = launches()
+    wall = time.perf_counter() - t0
+    print(f"[14 tools] bench_train {' '.join(argv)}, its output:", flush=True)
+    for line in lines:
+        print(f"[14 tools]   {line}", flush=True)
+    cfg = BT.bench_config()
+    want_b2 = BT.b2_launches(cfg, BENCH_STEPS)
+    printed = json.loads(lines[-1]) if lines else None
+    chk.check(printed == bench and set(bench) == BENCH_KEYS,
+              f"[14 tools] bench_train's JSON line: {lines[-1:]}")
+    chk.check(all(np.isfinite(v) for v in bench["losses"].values()),
+              f"[14 tools] bench_train losses finite: {bench['losses']}")
+    chk.check(counts["b2"] == want_b2 and counts["b1"] == 0,
+              f"[14 tools] bench_train launches {counts} (want B2 "
+              f"{want_b2} = 8 x ({BENCH_STEPS} + 1) steps, B1 0)")
+    print(f"[14 tools] bench_train: {bench['ms_per_step']:.2f} ms/step, "
+          f"{bench['mel_frames_per_s']:.1f} mel frames/s, "
+          f"{bench['audio_s_per_train_s']:.2f} s audio per s, first step "
+          f"{bench['compile_plus_first_step_s']:.1f} s, peak "
+          f"{bench['peak_mem_gib']:.2f} GiB; launches B2 {counts['b2']} "
+          f"(want {want_b2}), B1 {counts['b1']}; tool wall {wall:.1f} s | "
+          f"{card}", flush=True)
+    windows["tools_bench"] = counts
+    probed = probe.compare(chk, "[14 tools] bench_train")
+    print(f"[14 tools] bench_train window: {probe_line(probed)}", flush=True)
+    out["bench"] = dict(bench, argv=argv, launches=counts, want_b2=want_b2,
+                        wall_s=wall, probe=probed)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    LC.reset()
+    t0 = time.perf_counter()
+    with KernelProbe() as probe:
+        prof, lines = _tool_main(PI.main, ["hifigan", "1"])
+    counts = launches()
+    wall = time.perf_counter() - t0
+    print("[14 tools] profile_inference hifigan 1, its output:", flush=True)
+    for line in lines:
+        print(f"[14 tools]   {line}", flush=True)
+    want = [re.escape(card), r"device: .+", *PROFILE_LINES]
+    chk.check(len(lines) == len(want) and all(
+        re.fullmatch(p, line) for p, line in zip(want, lines)),
+        f"[14 tools] profile_inference's lines: {lines}")
+    per_eval = b1_per_eval(PI.profile_config("hifigan").model_params.decoder)
+    want_b1 = per_eval * prof["evals"] + prof["b1_op_calls"]
+    chk.check(counts["b1"] == want_b1 and counts["b2"] > 0,
+              f"[14 tools] profile_inference launches {counts} (want B1 "
+              f"{want_b1} = {per_eval} x {prof['evals']} evaluations + "
+              f"{prof['b1_op_calls']} operator calls, B2 > 0)")
+    print(f"[14 tools] profile_inference: phase 1 "
+          f"{prof['phase1_s'] * 1e3:.2f} ms; phase 2 "
+          + ", ".join(f"fb {fb} {t * 1e3:.2f} ms"
+                      for fb, t in prof["phase2_s"].items())
+          + f"; decoder {prof['decoder_s'] * 1e3:.2f}, generator "
+          f"{prof['generator_s'] * 1e3:.2f}, F0/N {prof['f0n_s'] * 1e3:.2f}"
+          f" ms; dispatch {prof['dispatch_s'] * 1e3:.3f}, B1 op "
+          f"{prof['b1_op_s'] * 1e3:.3f} ms; launches B1 {counts['b1']} "
+          f"(want {want_b1}), B2 {counts['b2']}; tool wall {wall:.1f} s | "
+          f"{card}", flush=True)
+    windows["tools_profile"] = counts
+    probed = probe.compare(chk, "[14 tools] profile_inference")
+    print(f"[14 tools] profile_inference window: {probe_line(probed)}",
+          flush=True)
+    out["profile"] = dict(prof, launches=counts, want_b1=want_b1,
+                          wall_s=wall, probe=probed)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[14 tools] phase wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def scaled_max_err(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
 
@@ -3878,6 +4010,9 @@ def main() -> int:
                     "line")
     ap.add_argument("--export-only", action="store_true",
                     help="run phases 1, 2 and 13 only and print no result "
+                    "line")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="run phases 1, 2 and 14 only and print no result "
                     "line")
     ap.add_argument("--parallel-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)  # one rank of phase 11
@@ -3908,16 +4043,14 @@ def main() -> int:
     sys.path.insert(0, str(root))
     from styletts2_tpu_torch.config import load_config
     from styletts2_tpu_torch.ops import _build
+    from styletts2_tpu_torch.profiling import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(8)
     chk = Checks()
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    card = card[0] if card else "unknown card"
+    card = card_line()
     print(f"[1 card] {card} | {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
@@ -3962,6 +4095,16 @@ def main() -> int:
                 {"card": card, "export": export, "failed": chk.failed},
                 indent=1, default=str))
         return 1 if chk.failed else 0
+    if args.tools_only:
+        tools = phase_tools(chk, card, {})
+        print(f"[chip_smoke] wall {time.perf_counter() - T_START:.1f} s",
+              flush=True)
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"card": card, "tools": tools, "failed": chk.failed},
+                indent=1, default=str))
+        return 1 if chk.failed else 0
     if args.slm_only:
         slm = phase_slm(chk, root, card, seed_workspace(root), {})
         if args.json:
@@ -4004,9 +4147,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     export = phase_export(chk, root, card, windows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tools = phase_tools(chk, card, windows)
     # the main path's launches: every window of phases 5, 7, 8, 9, 10, 11,
-    # 12 and 13 (graph replays counted as the launches they recorded; phase
-    # 11's per rank; phase 13's in its serving process)
+    # 12, 13 and 14 (graph replays counted as the launches they recorded;
+    # phase 11's per rank; phase 13's in its serving process)
     n_b1 = sum(c["b1"] for c in windows.values())
     n_b2 = sum(c["b2"] for c in windows.values())
 
@@ -4038,8 +4184,10 @@ def main() -> int:
              "engine": engine_out, "launches": windows,
              "train": train_out, "decoders": decoders, "deploy": deploy,
              "slm": slm, "parallel": par, "onnx": onnx, "export": export,
-             "failed": chk.failed}, indent=1,
+             "tools": tools, "failed": chk.failed}, indent=1,
             default=str))
+    print(f"[chip_smoke] wall {time.perf_counter() - T_START:.1f} s",
+          flush=True)
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} checks failed: {chk.failed}",
               file=sys.stderr)

@@ -15,7 +15,6 @@ with the card's name and power limit. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 from pathlib import Path
 
@@ -25,6 +24,7 @@ import yaml
 
 from styletts2_tpu_torch.config import load_config, with_decoder_type
 from styletts2_tpu_torch.infer import StyleTTS2
+from styletts2_tpu_torch.profiling import card_line
 
 CONFIG = Path(__file__).resolve().parent.parent / "configs" / "config_example.yaml"
 
@@ -67,9 +67,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: no CUDA device")
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
+    card = card_line()
     engine = StyleTTS2(load_config(with_decoder_type(
         yaml.safe_load(CONFIG.read_text()), args.decoder)), seed=0)
     sr = engine.sr

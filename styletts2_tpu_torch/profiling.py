@@ -1,5 +1,6 @@
 """Step timing, a profiler trace of a window of steps, and non-finite loss
-detection for the trainer.
+detection for the trainer, and the card line that measurements are
+printed beside.
 
 The port's own copy of styletts2_tpu/profiling.py's `StepTimer` and
 `check_finite`, without the latter's 'skip' action: the check runs after
@@ -10,12 +11,29 @@ jax.profiler `trace`: a torch.profiler trace of the same steps.
 from __future__ import annotations
 
 import os
+import subprocess
 import time
 from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+
+def card_line(index: int = 0) -> str:
+    """GPU `index`'s name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (the
+    device's name alone where nvidia-smi gives nothing)."""
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        if res.returncode == 0 and res.stdout.strip():
+            return res.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return torch.cuda.get_device_name(index)
 
 
 class StepTrace:

@@ -19,12 +19,15 @@ package reads the other's packs:
   symbol_table: the symbol dict as a JSON string
   style/<name>: a (1, style_dim) float32 array per voice
 
-Usage (at least one of --graphs-out and --voices-dir with --out):
+Usage, the JAX tool's form (--out is the graphs directory):
   python -m styletts2_tpu_torch.tools.export_serving \
       --config configs/config_example.yaml --ckpt model.pth \
-      --graphs-out export_dir --token-buckets 64,128 \
-      --frame-buckets 200,400,800 \
-      [--voices-dir voices/ --out pack.npz]
+      --out export_dir --token-buckets 64,128 --frame-buckets 200,400,800
+and a voicepack (--out is then the pack; --graphs-out DIR also writes
+the graphs):
+  python -m styletts2_tpu_torch.tools.export_serving \
+      --config configs/config_example.yaml --ckpt model.pth \
+      --voices-dir voices/ --out pack.npz [--graphs-out export_dir]
 """
 
 from __future__ import annotations
@@ -221,28 +224,39 @@ def main(argv=None) -> None:
     ap.add_argument("--config", required=True)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--graphs-out", default=None,
-                    help="write the phase-1/phase-2 graphs here")
+                    help="write the phase-1/phase-2 graphs here (needed "
+                    "only beside --voices-dir; else --out is the graphs "
+                    "directory)")
     ap.add_argument("--token-buckets", default="64,128")
     ap.add_argument("--frame-buckets", default="200,400,800")
     ap.add_argument("--voices-dir", default=None,
                     help="write a voicepack of these clips to --out")
     ap.add_argument("--denoise", type=float, default=0.3)
-    ap.add_argument("--out", default=None)
+    ap.add_argument("--out", default=None,
+                    help="the graphs directory (the JAX tool's --out), or "
+                    "with --voices-dir the voicepack path")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.graphs_out is None and args.voices_dir is None:
-        ap.error("give --graphs-out, or --voices-dir with --out")
+    if args.out is None and args.graphs_out is None:
+        ap.error("give --out (the graphs directory, or the voicepack "
+                 "with --voices-dir), or --graphs-out")
     if args.voices_dir is not None and args.out is None:
         ap.error("--voices-dir needs --out")
+    if args.voices_dir is None and None not in (args.out, args.graphs_out):
+        ap.error("without --voices-dir, --out is the graphs directory: "
+                 "give --out or --graphs-out, not both")
+    graphs_out = args.graphs_out
+    if graphs_out is None and args.voices_dir is None:
+        graphs_out = args.out
 
     from styletts2_tpu_torch.infer import StyleTTS2
 
     engine = StyleTTS2(args.config, args.ckpt, device=args.device)
-    if args.graphs_out is not None:
+    if graphs_out is not None:
         tbs = [int(x) for x in args.token_buckets.split(",")]
         fbs = [int(x) for x in args.frame_buckets.split(",")]
-        manifest = export_engine(engine, args.graphs_out, tbs, fbs)
-        print(f"exported {len(manifest)} graphs to {args.graphs_out}")
+        manifest = export_engine(engine, graphs_out, tbs, fbs)
+        print(f"exported {len(manifest)} graphs to {graphs_out}")
     if args.voices_dir is not None:
         save_voicepack(engine, args.out, voice_files(args.voices_dir),
                        denoise=args.denoise)

@@ -5,8 +5,11 @@ source or header never loads a stale library. Runs without nvcc."""
 import shutil
 
 import pytest
+import torch
 
 from styletts2_tpu_torch.ops import _build
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture

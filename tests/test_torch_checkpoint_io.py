@@ -41,7 +41,7 @@ from styletts2_tpu_torch.nn.text_encoder import TextEncoder
 from styletts2_tpu_torch.optim import MultiOptimizer
 from torch_istft_common import BASE, config, port_tree
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 DECODERS = {
     "hifigan": {"type": "hifigan", "upsample_initial_channel": 512,

@@ -26,7 +26,7 @@ from styletts2_tpu_torch.nn import decoder as TDE
 from styletts2_tpu_torch.ops import align as TALN
 from styletts2_tpu_torch.ops import stft as TS
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 NET_TOL = dict(atol=2e-4, rtol=1e-3)
 
 

@@ -33,7 +33,7 @@ from styletts2_tpu_torch.tools.serve_http import (TTSService, make_server,
 from test_torch_checkpoint_io import DECODERS
 from torch_istft_common import config
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 # the small Vocos config of the engine and the tools (HiFi-GAN's
 # 512-channel generator takes ~1 s per call on two CPU threads, Vocos
 # ~0.1 s)

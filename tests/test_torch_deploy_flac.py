@@ -6,10 +6,13 @@ its magic)."""
 
 import numpy as np
 import pytest
+import torch
 
 from styletts2_tpu import flac as JFL
 from styletts2_tpu_torch import audio as AUD
 from styletts2_tpu_torch import flac as TFL
+
+torch.set_num_threads(1)
 
 FLAC_CASES = ["constant", "verbatim", "fixed2", "lpc2", "independent",
               "left_side", "right_side", "mid_side"]

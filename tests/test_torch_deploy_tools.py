@@ -31,7 +31,7 @@ from test_torch_checkpoint_io import _assert_trees_equal
 from test_torch_deploy import VOCOS, _parse_wav, _quantised_clip
 from torch_istft_common import port_tree
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 # ---------------------------------------------------------------------
@@ -184,3 +184,73 @@ def test_launch_count_is_per_thread_and_exact():
     assert LC.get("k") == (n_threads // 2) * (n_adds + 1)
     assert all(recorded[i] == {"k": n_adds} for i in range(1, n_threads, 2))
     LC.reset()
+
+
+# ---------------------------------------------------------------------
+# tools/profile_inference
+# ---------------------------------------------------------------------
+
+def test_profile_inference_prints_every_figure_and_runs_phase2(
+        monkeypatch):
+    """tools/profile_inference on tests/test_torch_engine.py's tiny
+    HiFi-GAN engine at small buckets (token 24 with 20 real tokens, frame
+    60 and 120, the decoder alone at 60), one timed call each: every
+    figure's line in the JAX tool's wording (after the card's line), the
+    evaluations that run B1's blocks counted, and each phase-2 call the
+    tool makes (recorded by a spy on the engine's _phase2) fed by its
+    phase 1 with every token fb // 24 frames, its PCM equal to that of
+    this test's own seed-0 engine on the same inputs."""
+    import re
+
+    from styletts2_tpu_torch.infer import StyleTTS2
+    from styletts2_tpu_torch.tools import profile_inference as PI
+    from test_torch_engine import CFG
+
+    calls = {"phase1": [], "phase2": []}
+    for name in calls:
+        orig = getattr(StyleTTS2, f"_{name}")
+
+        def spy(self, *a, _orig=orig, _rec=calls[name]):
+            out = _orig(self, *a)
+            _rec.append((a, out))
+            return out
+
+        monkeypatch.setattr(StyleTTS2, f"_{name}", spy)
+    cfg = load_config(copy.deepcopy(CFG))
+    lines = []
+    out = PI.profile(cfg, "cpu", 1, token_bucket=24, n_tokens=20,
+                     frame_buckets=(60, 120), decode_bucket=60,
+                     style_seconds=3.0, reps=1, dispatch_reps=1,
+                     log=lines.append)
+    monkeypatch.undo()
+    ms = r"\d+\.\d+ ms"
+    want = [r"cpu", r"device: cpu", rf"dispatch overhead: {ms}",
+            rf"B1 op call \(1, 1200, 256\): \d+\.\d{{3}} ms",
+            rf"phase1 \(b=1, tb=24\): {ms}",
+            rf"phase2 \(b=1, fb=60, 0\.3s audio\): {ms} -> [\d.]+x realtime",
+            rf"phase2 \(b=1, fb=120, 0\.6s audio\): {ms} -> [\d.]+x realtime",
+            rf"decoder-only \(b=1, fb=60\): {ms} -> [\d.]+x",
+            rf"generator-only: {ms} -> [\d.]+x",
+            rf"f0n-only \(b=1, fb=60\): {ms}"]
+    assert len(lines) == len(want), lines
+    for line, pat in zip(lines, want):
+        assert re.fullmatch(pat, line), (line, pat)
+    for key in ("dispatch_s", "b1_op_s", "phase1_s", "decoder_s",
+                "generator_s", "f0n_s"):
+        assert out[key] > 0, key
+    assert sorted(out["phase2_s"]) == [60, 120]
+    # 2 frame buckets x (warm + 1), the decoder and the generator x 2
+    assert out["evals"] == 8 and out["b1_op_calls"] == 2
+
+    engine = StyleTTS2(cfg, seed=0, device="cpu")
+    (tokens, mask, s), (t_en, d, _) = calls["phase1"][0]
+    assert tokens.shape == (1, 24) and int(mask.sum()) == 20
+    # the untimed call, the warm call and one timed call
+    assert len(calls["phase1"]) == 3 and len(calls["phase2"]) == 4
+    for (args, got), fb in zip(calls["phase2"], (60, 60, 120, 120)):
+        assert args[0] is t_en and args[1] is d and args[4] == fb
+        durs = args[3]
+        assert durs.shape == (1, 24) and bool((durs == fb // 24).all())
+        assert got.shape == (1, 2 * fb * 60) and got.dtype == torch.int16
+        np.testing.assert_array_equal(got.numpy(), engine._phase2(
+            t_en, d, args[2], durs, fb).numpy())

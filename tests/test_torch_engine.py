@@ -19,7 +19,7 @@ from styletts2_tpu.models import build_model
 from styletts2_tpu_torch.config import load_config
 from styletts2_tpu_torch.infer import StyleTTS2
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CFG = {
     "preprocess_params": {"spect_params": {"n_fft": 512, "win_length": 240,

@@ -30,7 +30,7 @@ from styletts2_tpu_torch.infer import StyleTTS2
 from styletts2_tpu_torch.ops import vocoder_kernel as VK
 from styletts2_tpu_torch.tools import export_serving as ES
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 # the tiny config of tests/test_torch_engine.py
@@ -64,7 +64,7 @@ _CHILD = r"""
 import json, sys
 import numpy as np
 import torch
-torch.set_num_threads(2)  # the parent's: CPU reductions split by thread
+torch.set_num_threads(1)  # the parent's: CPU reductions split by thread
 from styletts2_tpu_torch.tools.export_serving import load_exported
 from styletts2_tpu_torch.ops import vocoder_kernel as VK
 out, p1, p2 = sys.argv[1:4]
@@ -224,6 +224,59 @@ def test_manifest_matches_the_jax_tool(run):
         ES.export_engine(mesh_engine, "unused", [TB], [FB])
     with pytest.raises(SystemExit):
         ES.main(["--config", "unused.yaml"])
+
+
+def test_cli_takes_the_jax_tools_form_and_the_voicepack_form(
+        tmp_path, monkeypatch):
+    """The JAX tool's command line (`--config c.yaml --out dir
+    --token-buckets 64 --frame-buckets 200`) hands --out to export_engine
+    as the graphs directory with the parsed buckets; `--voices-dir D --out
+    pack.npz` writes the voicepack there and exports nothing, and with
+    `--graphs-out G` also exports to G; without --voices-dir, --out and
+    --graphs-out together are refused. The engine and both writers are
+    stand-ins: the export itself is held against the JAX tool's manifest
+    above."""
+    calls = []
+
+    class Engine:
+        def __init__(self, config, ckpt=None, device="cuda"):
+            calls.append(("engine", config, ckpt, device))
+
+    import styletts2_tpu_torch.infer as INF
+
+    def export_engine(engine, out, tbs, fbs):
+        calls.append(("export", type(engine), out, tbs, fbs))
+        return {}
+
+    def save_voicepack(engine, out, voices, denoise):
+        calls.append(("voicepack", type(engine), out, voices, denoise))
+
+    monkeypatch.setattr(INF, "StyleTTS2", Engine)
+    monkeypatch.setattr(ES, "export_engine", export_engine)
+    monkeypatch.setattr(ES, "save_voicepack", save_voicepack)
+    (tmp_path / "voices").mkdir()
+    (tmp_path / "voices" / "a.wav").write_bytes(b"")
+    voices = {"a": str(tmp_path / "voices" / "a.wav")}
+
+    ES.main(["--config", "c.yaml", "--out", "dir", "--token-buckets", "64",
+             "--frame-buckets", "200", "--device", "cpu"])
+    assert calls == [("engine", "c.yaml", None, "cpu"),
+                     ("export", Engine, "dir", [64], [200])]
+    calls.clear()
+    ES.main(["--config", "c.yaml", "--voices-dir", str(tmp_path / "voices"),
+             "--out", "pack.npz", "--device", "cpu"])
+    assert calls == [("engine", "c.yaml", None, "cpu"),
+                     ("voicepack", Engine, "pack.npz", voices, 0.3)]
+    calls.clear()
+    ES.main(["--config", "c.yaml", "--voices-dir", str(tmp_path / "voices"),
+             "--out", "pack.npz", "--graphs-out", "g", "--device", "cpu"])
+    assert calls[1:] == [("export", Engine, "g", [64, 128], [200, 400, 800]),
+                         ("voicepack", Engine, "pack.npz", voices, 0.3)]
+    calls.clear()
+    with pytest.raises(SystemExit):
+        ES.main(["--config", "c.yaml", "--out", "dir", "--graphs-out", "g",
+                 "--device", "cpu"])
+    assert calls == []
 
 
 def test_phase1_graph_matches_jax(run):

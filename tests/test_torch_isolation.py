@@ -11,6 +11,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import torch
+
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "styletts2_tpu_torch"
 
@@ -33,7 +37,8 @@ for must in ("train", "train_loop", "losses", "optim", "checkpoint",
              "tools.convert_to_torch", "tools.strip_checkpoint",
              "tools.extend_tokens", "parallel", "parallel.mesh",
              "parallel.seqpar", "onnx", "onnx.proto", "onnx.builder",
-             "onnx.export", "onnx.runtime", "tools.export_onnx"):
+             "onnx.export", "onnx.runtime", "tools.export_onnx",
+             "tools.bench_train", "tools.profile_inference"):
     assert pkg.__name__ + "." + must in names, must
 print(len(names))
 print("|".join(bad))
@@ -47,8 +52,8 @@ def test_package_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     n_modules, bad = (out.stdout.split("\n") + [""])[:2]
     # every submodule was imported: the inference, training, deployment,
-    # multi-GPU and ONNX modules
-    assert int(n_modules) >= 58, out.stdout
+    # multi-GPU and ONNX modules and the measurement tools
+    assert int(n_modules) >= 60, out.stdout
     assert bad == "", f"imported: {bad}"
 
 

@@ -38,7 +38,7 @@ from styletts2_tpu_torch.ops import stft as S
 
 import torch_istft_common as C
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 # prod(rates) * istft hop == the tiny engine's mel hop of 60
 DECODER = {"type": "istftnet", "upsample_initial_channel": 512,

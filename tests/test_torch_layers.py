@@ -23,7 +23,7 @@ from styletts2_tpu_torch.nn.predictor import ProsodyPredictor
 from styletts2_tpu_torch.nn.style_encoder import StyleEncoder
 from styletts2_tpu_torch.nn.text_encoder import TextEncoder
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 

@@ -17,7 +17,7 @@ from styletts2_tpu_torch.ops import launch_count
 from styletts2_tpu_torch.ops import mel_kernel as MK
 from styletts2_tpu_torch.ops import stft as TS
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 TOL = dict(atol=2e-5, rtol=1e-4)
 
 # the style window (3 s at 24 kHz, 80 mels) and the three MRSTFT

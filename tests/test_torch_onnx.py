@@ -22,7 +22,7 @@ from styletts2_tpu_torch.onnx import runtime as R
 from styletts2_tpu_torch.onnx.builder import GraphBuilder
 from torch_onnx_common import DECODERS, jax_tree, port_cfg, port_modules
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _EXPORTS = {}
 

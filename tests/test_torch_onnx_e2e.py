@@ -7,9 +7,17 @@ that runtime against the JAX forward), and the speed input.
 Gate: equal lengths and max |got - want| / max |want| <= 5e-3, the JAX
 suite's own gate for its runtime against its forward."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
+
+try:  # not a declared dependency: without it the BLAS keeps its threads
+    from threadpoolctl import threadpool_limits
+except ImportError:
+    def threadpool_limits(*a, **k):
+        return contextlib.nullcontext()
 
 from styletts2_tpu.onnx import export_onnx as jax_export_onnx
 from styletts2_tpu.onnx.runtime import OnnxModel as JaxOnnxModel
@@ -18,7 +26,7 @@ from styletts2_tpu_torch.onnx.runtime import OnnxModel
 from torch_onnx_common import (DECODERS, E2E_GATE, inputs, jax_tree,
                                port_cfg, scaled_max)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _MODELS = {}
 
@@ -35,7 +43,10 @@ def port_model(decoder):
 def test_graph_matches_jax_runtime(decoder):
     tree, cfg = jax_tree(decoder)
     feeds = inputs(decoder)
-    want = JaxOnnxModel(jax_export_onnx(tree, cfg)).run(feeds)[0]
+    # the numpy runtime's products on one BLAS thread: OpenBLAS's idle
+    # threads spin, which cost 2.5x this file's CPU time on a shared host
+    with threadpool_limits(1, user_api="blas"):
+        want = JaxOnnxModel(jax_export_onnx(tree, cfg)).run(feeds)[0]
     got = port_model(decoder).run(feeds)[0]
     assert got.dtype == np.float32 and got.shape == want.shape, (
         got.shape, want.shape)

@@ -25,7 +25,7 @@ from torch_onnx_common import (DECODERS, E2E_GATE, cfg_dict, inputs,
                                onnx_reference, port_cfg, port_modules,
                                scaled_max)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("decoder", DECODERS)

@@ -6,7 +6,7 @@ import torch
 
 from torch_parallel_worker import collect, launch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 LOOP_MODEL = """
 model_params:

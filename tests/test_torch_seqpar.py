@@ -35,7 +35,7 @@ from styletts2_tpu_torch.parallel import seqpar as SP
 from torch_parallel_worker import (collect, decoder_tree, engine_params,
                                    launch)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 HIFIGAN = {"upsample_initial_channel": 512, "upsample_rates": [10, 6],
            "upsample_kernel_sizes": [20, 12], "resblock_kernel_sizes": [3, 7],

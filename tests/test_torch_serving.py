@@ -24,7 +24,7 @@ from styletts2_tpu_torch import infer as TI
 from styletts2_tpu_torch.config import load_config
 from test_torch_engine import CFG
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 REL_L2 = 5e-4
 # the JAX engine's merge costs (TPU times, styletts2_tpu/infer.py
 # _plan_finish): arguments of the port's rule here, nowhere else

@@ -34,7 +34,7 @@ from styletts2_tpu_torch.optim import MultiOptimizer
 from test_torch_train_parity import TINY
 from test_torch_wavlm import carried, rel_l2, small_cfgs
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 B_, T_TEXT, T_MEL, CROP, HOP = 2, 12, 100, 33, 60
 
 

@@ -19,6 +19,7 @@ from styletts2_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from styletts2_tpu_torch.config import load_config
 from styletts2_tpu_torch.models import build_model
 
+torch.set_num_threads(1)
 WORDS = ("the quick brown fox jumps over a lazy dog while eager cats "
          "watch from warm windows and dream of distant silver fish").split()
 
@@ -35,8 +36,8 @@ model_params:
   decoder:
     type: hifigan
     upsample_initial_channel: 512
-    upsample_rates: [10, 30]
-    upsample_kernel_sizes: [20, 60]
+    upsample_rates: [5, 5, 4, 3]
+    upsample_kernel_sizes: [10, 10, 8, 6]
     resblock_kernel_sizes: [3]
     resblock_dilation_sizes: [[1, 3]]
 tpu:
@@ -47,7 +48,6 @@ tpu:
 @pytest.fixture(scope="module")
 def workspace(tmp_path_factory):
     """Six ~0.3 s WAVs (bin 0), list files, a seed checkpoint, the config."""
-    torch.set_num_threads(2)
     root = tmp_path_factory.mktemp("torch_train_cli")
     (root / "wavs").mkdir()
     rng = np.random.default_rng(0)
@@ -199,3 +199,78 @@ def test_nan_action_raise_and_ignore(workspace):
     check_finite({"mel": 0.5}, 3, "raise")
     with pytest.raises(SystemExit):
         main(["-p", workspace[1], "--nan-action", "skip"], device="cpu")
+
+
+def _bench_config(batch, max_len, decoder, remat, grad_accum):
+    """tools/bench_train's config at this file's small model: MODEL_YAML's
+    modules at hop 30 with a [6, 5] decoder (a tenth of the hop-300 step's
+    samples; the generator's width and the discriminators are fixed)."""
+    import yaml
+
+    raw = yaml.safe_load(MODEL_YAML)
+    raw.update(batch_size=batch, max_len=max_len, debug=False)
+    raw["preprocess_params"] = {"spect_params": {
+        "n_fft": 512, "win_length": 120, "hop_length": 30}}
+    raw["model_params"]["decoder"].update(
+        type=decoder, upsample_rates=[6, 5], upsample_kernel_sizes=[12, 10])
+    raw["tpu"].update(remat=remat, grad_accum=grad_accum)
+    return load_config(raw)
+
+
+def test_bench_train_one_cpu_step(capsys, monkeypatch):
+    """tools/bench_train through its command line at _bench_config (batch
+    1, max_len 66; --steps 1 after the warm step, --device cpu): one JSON
+    line with the JAX tool's keys and finite losses."""
+    import json
+
+    from styletts2_tpu_torch.tools import bench_train as BT
+
+    monkeypatch.setattr(BT, "bench_config", _bench_config)
+    out = BT.main(["--batch", "1", "--max-len", "66", "--t-text", "12",
+                   "--steps", "1", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out
+    assert set(line) == {"metric", "ms_per_step", "steps_per_s",
+                         "mel_frames_per_s", "audio_s_per_train_s",
+                         "compile_plus_first_step_s", "device", "losses",
+                         "peak_mem_gib"}
+    assert line["metric"] == "train step (hifigan, batch 1, max_len 66)"
+    assert line["device"] == "cpu" and line["peak_mem_gib"] is None
+    assert set(line["losses"]) == {"mel", "gen", "ce", "dur", "norm", "f0",
+                                   "s2s", "mono", "g_loss", "d_loss"}
+    assert all(np.isfinite(v) for v in line["losses"].values())
+    assert line["ms_per_step"] > 0 and line["mel_frames_per_s"] > 0
+
+
+def test_bench_train_batch_and_errors(monkeypatch):
+    """tools/bench_train's batch is the JAX tool's numpy construction at
+    seed 0 (styletts2_tpu/tools/bench_train.py:74-80, written out here);
+    B2 runs 8 times per micro-batch of the warm and the timed steps; an
+    error inside the step, out-of-memory among them, propagates (the
+    batch is never shrunk)."""
+    from styletts2_tpu_torch import train as TT
+    from styletts2_tpu_torch.tools import bench_train as BT
+
+    b, t_text, t_mel = 2, 7, 9
+    rng = np.random.default_rng(0)
+    want = dict(
+        waves=rng.standard_normal((b, t_mel * 300)).astype("float32") * 0.1,
+        texts=rng.integers(4, 170, (b, t_text)).astype("int32"),
+        input_lengths=np.full((b,), t_text, np.int32),
+        mel_lengths=np.full((b,), t_mel, np.int32))
+    got = BT.synthetic_batch(b, t_text, t_mel, 300)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert BT.b2_launches(_bench_config(5, 66, "hifigan", False, 5), 3) == \
+        8 * 5 * 4
+
+    def oom(*a, **k):
+        raise torch.OutOfMemoryError("out of memory (stand-in)")
+
+    monkeypatch.setattr(TT, "make_step_pair", lambda *a, **k: (oom, oom))
+    monkeypatch.setattr(W, "init_random", lambda *a, **k: None)
+    with pytest.raises(torch.OutOfMemoryError, match="stand-in"):
+        BT.run(_bench_config(1, 66, "hifigan", False, 1), "cpu", steps=1,
+               t_text=12)

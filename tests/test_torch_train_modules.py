@@ -28,7 +28,7 @@ from styletts2_tpu_torch.ops import mel_kernel as MK
 from styletts2_tpu_torch.ops import stft as S
 
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _fixture(name):

@@ -24,7 +24,7 @@ from styletts2_tpu_torch.nn.text_encoder import TextEncoder
 from styletts2_tpu_torch.ops import vocoder_kernel as VK
 
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TINY = {
     "max_len": 66,
@@ -134,7 +134,11 @@ def _params(mods, k):
     return [p.detach().clone() for p in mods[k].parameters()]
 
 
-def test_train_step_updates_modules_and_chains(tiny, monkeypatch):
+@pytest.fixture(scope="module")
+def stepped(tiny):
+    """Two make_train_step steps on a copy of the tiny modules from
+    generator seed 21, kernel B1's wrapper made to raise: the metrics and
+    optimizer states after each, and which parameters the first moved."""
     from styletts2_tpu_torch.optim import MultiOptimizer
 
     cfg, mods, batch = tiny
@@ -143,25 +147,40 @@ def test_train_step_updates_modules_and_chains(tiny, monkeypatch):
     def no_b1(*a, **k):
         raise AssertionError("kernel B1 reached from the training step")
 
-    monkeypatch.setattr(VK, "ada_snake_conv", no_b1)
-    opt = MultiOptimizer(mods)
-    step = TT.make_train_step(cfg, opt)
-    gen = torch.Generator().manual_seed(1)
-    before = {k: _params(mods, k) for k in mods}
-    m = step(mods, batch, gen)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(VK, "ada_snake_conv", no_b1)
+        opt = MultiOptimizer(mods)
+        step = TT.make_train_step(cfg, opt)
+        gen = torch.Generator().manual_seed(21)
+        before = {k: _params(mods, k) for k in mods}
+        m1 = step(mods, batch, gen)
+        moved = {k: [not torch.equal(a, p) for a, p in
+                     zip(before[k], mods[k].parameters())] for k in mods}
+        st1 = opt.state_trees()
+        m2 = step(mods, batch, gen)
+        st2 = opt.state_trees()
+    return m1, moved, st1, m2, st2
+
+
+@pytest.fixture(scope="module")
+def g_baseline(tiny):
+    """g_grads (no remat) on the tiny modules as built, generator seed 21:
+    the remat test's reference and the G step's stale-discriminator
+    counterpart."""
+    cfg, mods, batch = tiny
+    _, g = TT.make_grad_fns(cfg)
+    return g(mods, batch, torch.Generator().manual_seed(21))
+
+
+def test_train_step_updates_modules_and_chains(stepped):
+    m, moved, st1, m2, st2 = stepped
     assert set(m) == {"mel", "gen", "ce", "dur", "norm", "f0", "s2s", "mono",
                       "g_loss", "d_loss"}
     assert all(np.isfinite(float(v)) for v in m.values()), m
     for k in TT.GEN_MODULES + TT.DISC_MODULES:
-        assert any(not torch.equal(a, p) for a, p in
-                   zip(before[k], mods[k].parameters())), f"{k} did not move"
-    for a, p in zip(before["pitch_extractor"],
-                    mods["pitch_extractor"].parameters()):
-        assert torch.equal(a, p)
-    st1 = opt.state_trees()
-    m2 = step(mods, batch, gen)
+        assert any(moved[k]), f"{k} did not move"
+    assert not any(moved["pitch_extractor"])
     assert all(np.isfinite(float(v)) for v in m2.values()), m2
-    st2 = opt.state_trees()
     for k in TT.GEN_MODULES + TT.DISC_MODULES:
         assert st1[k]["count"] == 1 and st2[k]["count"] == 2
     mu1 = st1["decoder"]["mu"]["generator"]["conv_post"]["weight_v"]
@@ -169,18 +188,15 @@ def test_train_step_updates_modules_and_chains(tiny, monkeypatch):
     assert not np.array_equal(mu1, mu2)
 
 
-def test_remat_matches_baseline(tiny):
+def test_remat_matches_baseline(tiny, g_baseline):
     """torch.utils.checkpoint over the synthesis and the G-side
     discriminators recomputes the same forward: identical gradients."""
     cfg, mods, batch = tiny
-    out = []
-    for remat in (False, True):
-        cfg = copy.deepcopy(cfg)
-        cfg.tpu.remat = remat
-        _, g = TT.make_grad_fns(cfg)
-        gen = torch.Generator().manual_seed(5)
-        out.append(g(mods, batch, gen))
-    (m0, g0), (m1, g1) = out
+    cfg = copy.deepcopy(cfg)
+    cfg.tpu.remat = True
+    _, g = TT.make_grad_fns(cfg)
+    m1, g1 = g(mods, batch, torch.Generator().manual_seed(21))
+    m0, g0 = g_baseline
     for k in m0:
         assert torch.equal(m0[k], m1[k]), k
     for k in g0:
@@ -245,7 +261,8 @@ def test_decoder_training_smoothing(tiny):
         torch.testing.assert_close(raw.grad, want, rtol=1e-5, atol=1e-6)
 
 
-def test_g_step_sees_updated_discriminators_and_d_draws(tiny):
+def test_g_step_sees_updated_discriminators_and_d_draws(tiny, stepped,
+                                                       g_baseline):
     """The G step runs against the D-updated mpd/msd, from the generator
     state the D step started from (reference train.py:272-328): its loss
     equals g_grads on the D-updated modules with the generator rewound,
@@ -253,15 +270,11 @@ def test_g_step_sees_updated_discriminators_and_d_draws(tiny):
     from styletts2_tpu_torch.optim import MultiOptimizer
 
     cfg, mods, batch = tiny
-    a = copy.deepcopy(mods)
-    got = TT.make_train_step(cfg, MultiOptimizer(a))(
-        a, batch, torch.Generator().manual_seed(21))
-
+    got = stepped[0]
+    stale = g_baseline[0]
     b = copy.deepcopy(mods)
     d_step, _ = TT.make_step_pair(cfg, MultiOptimizer(b))
     _, g_fn = TT.make_grad_fns(cfg)
-    stale, _ = g_fn(copy.deepcopy(mods), batch,
-                    torch.Generator().manual_seed(21))
     d_step(b, batch, torch.Generator().manual_seed(21))
     want, _ = g_fn(b, batch, torch.Generator().manual_seed(21))
     assert torch.equal(got["g_loss"], want["g_loss"])

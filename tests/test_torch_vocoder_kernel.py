@@ -20,7 +20,7 @@ from styletts2_tpu_torch.nn import blocks as TB
 from styletts2_tpu_torch.ops import launch_count
 from styletts2_tpu_torch.ops import vocoder_kernel as VK
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # f32: both sides are true-f32 with different summation orders over
 # C*k <= 704 products of O(1) terms. bf16: both round z and the output to

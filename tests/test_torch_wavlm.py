@@ -37,7 +37,7 @@ from styletts2_tpu_torch.optim import MultiOptimizer
 from test_torch_train_cli import workspace  # noqa: F401  (the fixture)
 from test_torch_train_parity import TINY
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 SMALL = dict(hidden_size=96, num_hidden_layers=3, num_attention_heads=4,
              intermediate_size=128, num_conv_pos_embeddings=16,
              num_conv_pos_embedding_groups=4, num_buckets=64,

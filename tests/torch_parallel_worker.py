@@ -103,13 +103,6 @@ def engine_params(cfg_dict):
     return {k: seeded_tree(m, i) for i, (k, m) in enumerate(mods.items())}
 
 
-def train_tree(cfg_dict):
-    """{module: tree} of all eight modules, seed 0."""
-    from styletts2_tpu_torch.models import build_model
-
-    return seeded_tree(build_model(load_config(cfg_dict).model_params), 0)
-
-
 def _decoder(cfg_dict, seed):
     from styletts2_tpu_torch.nn.decoder import Decoder
 
@@ -209,6 +202,13 @@ def run_engine(mesh, inp):
     return out
 
 
+def _step_tree(inp):
+    """The step's {module: tree} of all eight modules, pickled by the test
+    at inp["tree"] (JAX's build_model at PRNGKey(0))."""
+    with open(inp["tree"], "rb") as f:
+        return pickle.load(f)
+
+
 def _train_modules(cfg, tree):
     from styletts2_tpu_torch.models import build_model
 
@@ -247,7 +247,7 @@ def run_single(mesh, inp):
     from styletts2_tpu_torch.optim import MultiOptimizer
 
     cfg, crop, batch, draws = _step_setup(inp)
-    mods = _train_modules(cfg, train_tree(inp["cfg"]))
+    mods = _train_modules(cfg, _step_tree(inp))
     TT.make_train_step(cfg, MultiOptimizer(mods), crop)(
         mods, batch, torch.Generator().manual_seed(0), draws)
     return {"params": _flat(mods, TT.DISC_MODULES + TT.GEN_MODULES)}
@@ -268,8 +268,7 @@ def run_step(mesh, inp):
     local, local_draws = shard_batch(mesh, (batch, draws))
     out = {"local_rows": local.waves.shape[0]}
 
-    tree = train_tree(inp["cfg"])
-    mods = _train_modules(cfg, tree)
+    mods = _train_modules(cfg, _step_tree(inp))
     # the gradients and losses of the initial parameters, as the step
     # averages them
     d_fn, g_fn = TT.make_grad_fns(cfg, crop, mesh)
