@@ -1,0 +1,8 @@
+"""Share of the traced slice in which no operation ran on the device:
+1 - the union of its operations' intervals over the slice. %."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
